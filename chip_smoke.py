@@ -1,0 +1,342 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (sella_tpu_torch) on one GPU.
+
+Run from the repository root on a machine with an NVIDIA H100 and the CUDA
+toolkit:
+
+    python3 chip_smoke.py
+
+Phases (each prints its wall time; any failure raises and exits non-zero):
+
+1. environment: the card, its power limit, and the build of every kernel
+   of the main path from the sources in the checkout;
+2. kernel vs plain: the CUDA Jacobi eigh against its plain PyTorch
+   version and float64 ``eigvalsh`` on the same card, with its timing;
+3. potential: EMT energy, gradient and HVP on the card against a CPU copy;
+4. the slice: the headline ensemble (Cu(111) 3x4x2 slab + adatom, 1024
+   lanes, fmax 1e-3) with ``prfo_eigh="jacobi"``, counting kernel launches;
+5. the same headline with the benchmark's own ``prfo_eigh="eigh"``.
+
+The last two lines of standard output are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# device-independent counts of the JAX package's headline run at fmax 1e-3
+# (BENCH_r05.json, extra.emt_fmax_1e-3)
+BENCH_R05_COUNTS = {"mean_steps_converged": 27.2, "mean_matvecs": 42.7,
+                    "mean_force_calls": 28.2}
+# eigenvalue gate (relative to the spectral radius), residual and
+# orthonormality gates: tests/test_pallas_eigh.py:65-109
+EIG_RTOL = 5e-5
+RES_TOL = 5e-4
+# EMT on the card vs on the CPU, float64: only summation order differs
+POT_RTOL = 1e-10
+CONV_FRAC_MIN = 0.99
+MAX_STEPS = 120
+
+
+def _phase(name, t0):
+    print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def headline_setup(batch, seed=0):
+    """The bench headline system (bench.py:225-246): Cu(111) 3x4x2 slab
+    plus one adatom nudged off the fcc hollow, 25 atoms; ``batch`` starts
+    jittered by 0.02 A from ``np.random.RandomState(seed)``."""
+    from sella_tpu_torch.potentials import EMT, fcc111_slab
+
+    a = 3.59
+    slab = fcc111_slab("Cu", a, size=(3, 4, 2))
+    d = a / np.sqrt(2)
+    top_z = slab.positions[:, 2].max()
+    base = slab.positions[slab.positions[:, 2] > top_z - 0.1][0]
+    ad = base + np.array(
+        [d / 2 + 0.3, d / (2 * np.sqrt(3)) + 0.1, a / np.sqrt(3)]
+    )
+    pos0 = np.vstack([slab.positions, ad])
+    nat = len(pos0)
+    pot = EMT(np.array([29] * nat), pbc=True)
+    rng = np.random.RandomState(seed)
+    x0 = np.stack([
+        (pos0 + 0.02 * rng.normal(size=pos0.shape)).ravel()
+        for _ in range(batch)
+    ])
+    return pot, x0, np.asarray(slab.cell), nat
+
+
+def headline_config(nat, batch, prfo_eigh):
+    """The bench headline EnsembleConfig (bench.py:356-363) at fmax 1e-3."""
+    from sella_tpu_torch import EnsembleConfig
+
+    return EnsembleConfig(
+        natoms=nat, order=1, nproj=3, fmax=1e-3, gamma=0.3,
+        davidson_max=25, delta0=5e-3,
+        diag_budget=max(batch // 8, 1), eigh_f32=True,
+        rs_maxiter=12, absb="ns",
+        eval_chunk=256 if batch >= 1024 else 0,
+        davidson_seed="grad", prfo_eigh=prfo_eigh,
+    )
+
+
+def _rand_sym(B, n, seed):
+    rng = np.random.RandomState(seed)
+    A = rng.normal(size=(B, n, n))
+    return A + np.swapaxes(A, 1, 2)
+
+
+def _spread_spectrum(seed, d, neg):
+    """Eigenvalues spanning 1e-4..30 with ``neg`` negatives
+    (tests/test_pallas_eigh.py:25-34)."""
+    rng = np.random.RandomState(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    lam = np.concatenate([
+        -(10.0 ** rng.uniform(-4, 1.5, neg)),
+        10.0 ** rng.uniform(-4, 1.5, d - neg),
+    ])
+    return (Q * lam) @ Q.T
+
+
+def _cuda_ms(fn, reps):
+    """Mean milliseconds of ``fn()`` on the card (CUDA events, warm)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def phase_env():
+    from sella_tpu_torch.ops import jacobi_eigh as je
+
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    print(f"device: {torch.cuda.get_device_name(0)}, "
+          f"count {torch.cuda.device_count()}, "
+          f"capability {torch.cuda.get_device_capability(0)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi, flush=True)
+    t = time.perf_counter()
+    je.build()
+    print(f"jacobi_eigh build: {time.perf_counter() - t:.2f} s")
+    if je.build_log.strip():
+        print(je.build_log.strip())
+
+
+def phase_kernel():
+    """Kernel vs plain version vs float64 eigvalsh, on the card."""
+    from sella_tpu_torch.ops.jacobi_eigh import jacobi_eigh_cuda, \
+        jacobi_eigh_ref
+
+    dev = torch.device("cuda", 0)
+    cases = {
+        "rand_1024x72": _rand_sym(1024, 72, 0),
+        "rand_8x20": _rand_sym(8, 20, 1),
+        "odd_4x9": _rand_sym(4, 9, 3),
+        "hard_3x72": np.stack([_spread_spectrum(s, 72, 3)
+                               for s in range(3)]),
+    }
+    max_abs_err = 0.0
+    for name, A_np in cases.items():
+        A = torch.as_tensor(A_np, device=dev)
+        w_k, V_k = jacobi_eigh_cuda(A)
+        w_p, V_p = jacobi_eigh_ref(A)
+        w_ref = torch.linalg.eigvalsh(A)
+        torch.cuda.synchronize()
+        scale = float(w_ref.abs().max())
+        err_ref = float((w_k - w_ref).abs().max()) / scale
+        err_plain = float((w_k - w_p).abs().max())
+        res = torch.linalg.norm(A @ V_k - V_k * w_k[:, None, :],
+                                dim=(1, 2)) / torch.linalg.norm(A, dim=(1, 2))
+        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=dev)
+        orth = float((V_k.transpose(1, 2) @ V_k - eye).abs().max())
+        print(f"  {name}: eig rel err vs eigvalsh {err_ref:.3e}, "
+              f"|w_kernel - w_plain| {err_plain:.3e}, "
+              f"residual {float(res.max()):.3e}, orth {orth:.3e}")
+        if not (err_ref < EIG_RTOL and err_plain / scale < EIG_RTOL
+                and float(res.max()) < RES_TOL and orth < RES_TOL):
+            raise AssertionError(f"jacobi_eigh kernel fails its gates on "
+                                 f"{name}")
+        if name.startswith("hard"):
+            nneg = (w_k < 0).sum(dim=1)
+            if not bool((nneg == 3).all()):
+                raise AssertionError(f"negative count {nneg.tolist()} != 3")
+        max_abs_err = max(max_abs_err, err_plain)
+
+    A = torch.as_tensor(cases["rand_1024x72"], device=dev)
+    ms = _cuda_ms(lambda: jacobi_eigh_cuda(A), 20)
+    plain_ms = _cuda_ms(lambda: jacobi_eigh_ref(A), 2)
+    print(f"  (1024, 72, 72): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_potential():
+    """EMT energy, gradient and HVP of 4 headline lanes: card vs CPU.
+
+    Each device is evaluated twice and the second results are compared.
+    In one run on an H100 host (torch 2.11) the first vmapped CPU
+    gradient of the process came out 4.5e-10 relative away from every
+    later call, which agreed with the card to 1e-14; other runs showed
+    no such difference. The first-call difference is printed, not
+    gated."""
+    from sella_tpu_torch.parallel.ensemble import _batched_eval, \
+        _batched_hvp_full
+
+    pot, x0, cell, _ = headline_setup(4)
+    v = np.random.RandomState(1).normal(size=x0.shape)
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        p = pot.to(dev)
+        c = torch.as_tensor(cell, device=dev)
+        x = torch.as_tensor(x0, device=dev)
+        vt = torch.as_tensor(v, device=dev)
+        runs = []
+        for _ in range(2):
+            f, g = _batched_eval(p, c)(x)
+            hv = _batched_hvp_full(p, c)(x, vt)
+            runs.append([t.cpu() for t in (f, g, hv)])
+        first = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(*runs))
+        print(f"  {dev}: first call vs second, max rel diff {first:.3e}")
+        out[dev] = runs[1]
+    for name, a, b in zip(("energy", "gradient", "hvp"), out["cpu"],
+                          out["cuda:0"]):
+        rel = float((a - b).abs().max() / a.abs().max())
+        print(f"  {name}: max rel diff card vs cpu {rel:.3e}")
+        if not (torch.isfinite(b).all() and rel < POT_RTOL):
+            raise AssertionError(f"EMT {name} on the card disagrees")
+
+
+def run_headline(prfo_eigh, dev="cuda:0", batch=1024):
+    """The headline ensemble on ``dev``; returns its stats."""
+    from sella_tpu_torch import run_ensemble
+    from sella_tpu_torch.ops.jacobi_eigh import jacobi_eigh_cuda
+    from sella_tpu_torch.parallel.ensemble import _batched_eval, free_basis
+
+    dev = torch.device(dev)
+    pot, x0, cell, nat = headline_setup(batch)
+    cfg = headline_config(nat, batch, prfo_eigh)
+    pot = pot.to(dev)
+    x0_t = torch.as_tensor(x0, device=dev)
+    cell_t = torch.as_tensor(cell, device=dev)
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    jacobi_eigh_cuda.launches = 0
+    t = time.perf_counter()
+    state = run_ensemble(pot, x0_t, cfg, max_steps=MAX_STEPS, cell=cell_t)
+    sync()
+    wall = time.perf_counter() - t
+    launches = jacobi_eigh_cuda.launches
+
+    for name, tns in zip(state._fields, state):
+        if tns.device != dev:
+            raise AssertionError(f"state.{name} is on {tns.device}")
+        if tns.is_floating_point() and not bool(torch.isfinite(tns).all()) \
+                and name != "best_fmax":
+            raise AssertionError(f"state.{name} has non-finite values")
+    if tuple(state.x.shape) != (batch, 3 * nat):
+        raise AssertionError(f"state.x has shape {tuple(state.x.shape)}")
+
+    conv = state.converged
+    nconv = int(conv.sum())
+    steps_run = int(state.nsteps.max())
+    # the repo's own convergence criterion, recomputed at the final
+    # geometry: max projected per-atom force below fmax
+    _, g = _batched_eval(pot, cell_t, cfg.eval_chunk)(state.x)
+    U = free_basis(state.x, cfg.nproj)
+    gp = U @ (U.transpose(1, 2) @ g[:, :, None])
+    fmax = gp[:, :, 0].reshape(batch, nat, 3).norm(dim=2).amax(dim=1)
+    bad = conv & ~(fmax < cfg.fmax)
+    if bool(bad.any()):
+        raise AssertionError(f"{int(bad.sum())} converged lanes have fmax "
+                             f">= {cfg.fmax} at their final geometry")
+    stats = {
+        "prfo_eigh": prfo_eigh,
+        "batch": batch,
+        "converged_frac": nconv / batch,
+        "steps_run": steps_run,
+        "mean_steps_converged": (
+            float(state.nsteps[conv].double().mean()) if nconv else None),
+        "mean_matvecs": float(state.nmatvec.double().mean()),
+        "mean_force_calls": float(state.neval.double().mean()),
+        "wall_s": wall,
+        "s_per_step": wall / max(steps_run, 1),
+        "jacobi_eigh_launches": launches,
+    }
+    print(json.dumps(stats), flush=True)
+    if stats["converged_frac"] < CONV_FRAC_MIN:
+        raise AssertionError(f"converged_frac {stats['converged_frac']} < "
+                             f"{CONV_FRAC_MIN}")
+    return stats
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs the "
+                         "port on a GPU only")
+    # f32 means f32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t = time.perf_counter()
+    phase_env()
+    _phase("1 environment + build", t)
+
+    t = time.perf_counter()
+    kern = phase_kernel()
+    _phase("2 kernel vs plain", t)
+
+    t = time.perf_counter()
+    phase_potential()
+    _phase("3 potential", t)
+
+    t = time.perf_counter()
+    jac = run_headline("jacobi")
+    if jac["jacobi_eigh_launches"] == 0:
+        raise AssertionError("the jacobi headline never launched the kernel")
+    _phase("4 headline, prfo_eigh=jacobi", t)
+
+    t = time.perf_counter()
+    eig = run_headline("eigh")
+    print(json.dumps({"bench_r05_counts": BENCH_R05_COUNTS,
+                      "eigh": {k: eig[k] for k in BENCH_R05_COUNTS},
+                      "jacobi": {k: jac[k] for k in BENCH_R05_COUNTS}}))
+    _phase("5 headline, prfo_eigh=eigh", t)
+
+    print(json.dumps({"kernels": [{
+        "name": "jacobi_eigh",
+        "route": "cuda",
+        "source": "sella_tpu_torch/csrc/jacobi_eigh.cu",
+        "replaces": "sella_tpu/ops/pallas_eigh.py:64",
+        "launches": jac["jacobi_eigh_launches"],
+        "max_abs_err": kern["max_abs_err"],
+        "ms": kern["ms"],
+        "plain_ms": kern["plain_ms"],
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

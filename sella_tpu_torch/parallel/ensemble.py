@@ -1,0 +1,1163 @@
+"""Batched ensemble saddle search in PyTorch — the Cartesian tier.
+
+Counterpart of ``sella_tpu/parallel/ensemble.py``: many concurrent
+RS-P-RFO saddle searches advance in lockstep, every dense operation is a
+batched (B, ., .) eigh/QR/matmul, and every force call is a batched
+potential evaluation (``torch.func.vmap`` over lanes).
+
+The JAX package's structured control flow becomes host control flow:
+
+* ``lax.fori_loop`` becomes a Python ``for`` with the same fixed count;
+* ``lax.cond(jnp.any(mask), ...)`` becomes ``if bool(mask.any()):``;
+* the Davidson ``lax.while_loop`` keeps its check every ``CHUNK = 4``
+  iterations (the iteration count feeds the random draw and ``it < K-1``
+  bounds the loop, so the cadence is part of the semantics).
+
+Randomness comes from an explicit ``torch.Generator``; trajectories match
+the JAX package only where the Davidson dead-vector draw does not fire.
+
+Not ported yet (each raises; see ROADMAP.md): equality/inequality
+constraints and comparators, the stagnation and dissociation restarts
+(``restart_after``, ``dmax_restart``), the ``conv_inertia`` gate, and
+sharding over a mesh.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import grad, grad_and_value, jvp, vmap
+
+from ..config import default_dtype
+from ..ops.jacobi_eigh import jacobi_eigh
+from ..ops.linalg import batched_eigh
+
+BIG = 1e30
+
+
+class EnsembleConfig(NamedTuple):
+    """Static configuration of a batched search (field names, defaults and
+    meanings as in ``sella_tpu.parallel.ensemble.EnsembleConfig``)."""
+
+    natoms: int
+    order: int = 1                 # saddle order (0 = minimization)
+    nproj: int = 6                 # projected rigid modes (3 trans + 3 rot)
+    fmax: float = 1e-3
+    gamma: float = 0.1             # Davidson relative residual target
+    delta0: float = 0.1
+    delta_min: float = 1e-4
+    sigma_inc: float = 1.15
+    sigma_dec: float = 0.65
+    rho_inc: float = 1.035
+    rho_dec: float = 5.0
+    nsteps_per_diag: int = 3
+    diag_every_n: int = 0          # 0 -> never (reference default: inf)
+    davidson_max: int = 0          # 0 -> 2*m+1 capped at m
+    rs_maxiter: int = 18           # alpha root-find iterations (exact count)
+    rs_tol: float = 1e-8
+    method: str = "prfo"           # 'prfo' | 'qn'
+    rs: str = "ras"                # 'ras' | 'tr'
+    eig: bool = True               # run Davidson (saddle default)
+    ncons: int = 0                 # number of equality-constraint rows
+    ctol: float = 1e-4             # constraint-residual convergence tol
+    diag_budget: int = 0           # max lanes re-diagonalized per step
+    #   (0 = all); unserved lanes keep their request and are served
+    #   longest-waiting-first
+    restart_after: int = 0         # stagnation restart (not ported: > 0 raises)
+    restart_kick: float = 0.25     # kick stddev per DOF
+    dmax_restart: float = 0.0      # dissociation restart (not ported: > 0 raises)
+    prfo_eigh: str = "eigh"        # P-RFO prep eigendecomposition:
+    #   "eigh" (torch.linalg.eigh, honors eigh_f32) or "jacobi" (the
+    #   batched parallel-order Jacobi: the CUDA kernel on the card, its
+    #   plain version on the CPU; float32 accuracy class)
+    davidson_seed: str = "grad"    # Davidson start vector: "grad"
+    #   (projected gradient) or "pmode" (leftmost eigenvector of the
+    #   projected quasi-Newton preconditioner for warm-Hessian lanes)
+    absb: str = "eigh"             # |B| metric in TS-BFGS: "eigh" (exact)
+    #   or "ns" (Newton–Schulz matrix-sign, batched float32 matmuls)
+    conv_inertia: bool = False     # inertia convergence gate (not ported: True raises)
+    conv_curv_min: float = 1e-3    # curvature floor of the conv_inertia audit
+    update: str = "TS-BFGS"        # "TS-BFGS", "BFGS" or "BFGS_auto"
+    eval_chunk: int = 0            # lanes per potential-eval chunk (0 = all);
+    #   bounds peak memory of the vmapped potential intermediates
+    eigh_f32: bool = False         # P-RFO prep eigh and |B| eigh in float32
+    pred_min: float = 1e-14        # smallest |predicted dE| the trust
+    #   ratio test trusts; below it ratio := 1
+
+    @property
+    def dim(self) -> int:
+        return 3 * self.natoms
+
+    @property
+    def nfree(self) -> int:
+        return self.dim - self.nproj - self.ncons
+
+    @property
+    def subspace_max(self) -> int:
+        m = self.nfree
+        k = self.davidson_max if self.davidson_max > 0 else 2 * m + 1
+        return min(m, k)
+
+
+class SearchState(NamedTuple):
+    """Per-search optimizer state; every field but ``fmax_t`` has a
+    leading batch axis."""
+
+    x: torch.Tensor            # (B, d) flat positions
+    f: torch.Tensor            # (B,) energy
+    g: torch.Tensor            # (B, d) gradient
+    B: torch.Tensor            # (B, d, d) quasi-Newton Hessian
+    B_init: torch.Tensor       # (B,) bool — Hessian bootstrapped?
+    delta: torch.Tensor        # (B,) trust radius
+    rho: torch.Tensor          # (B,) last prediction ratio
+    nsteps_since_diag: torch.Tensor  # (B,) int32
+    converged: torch.Tensor    # (B,) bool
+    nsteps: torch.Tensor       # (B,) int32
+    neval: torch.Tensor        # (B,) int32 gradient evaluations
+    nmatvec: torch.Tensor      # (B,) int32 Davidson matvecs (HVPs)
+    best_fmax: torch.Tensor    # (B,) best fmax since the last restart
+    stall: torch.Tensor        # (B,) int32 steps since best_fmax improved
+    nrestarts: torch.Tensor    # (B,) int32 stagnation restarts taken
+    x_home: torch.Tensor       # (B, d) pristine start (restart anchor)
+    fmax_t: torch.Tensor       # () runtime convergence gate
+
+
+def _bmv(M, v):
+    """Batched matrix-vector product: (B, i, j) @ (B, j) -> (B, i)."""
+    return torch.matmul(M, v[..., None])[..., 0]
+
+
+def _bmtv(M, v):
+    """Batched transposed product: (B, i, j)^T @ (B, i) -> (B, j)."""
+    return torch.matmul(v[..., None, :], M)[..., 0, :]
+
+
+# ---------------------------------------------------------------------------
+# Rigid-mode projection basis
+# ---------------------------------------------------------------------------
+def free_basis(x: torch.Tensor, nproj: int) -> torch.Tensor:
+    """Orthonormal basis of the non-rigid subspace for every lane,
+    shape (B, d, d - nproj), for flat positions ``x`` (B, d).
+
+    Rows projected out by ``nproj``: 0 = nothing (identity basis);
+    3 = the uniform translations; 5 = translations + the two rotations of
+    a LINEAR geometry (top-2 singular directions of the rotation
+    generators); 6 = translations + the 3 instantaneous rigid rotations
+    about the centroid. A complete QR of the generators gives the
+    complement. Only the span is defined: the columns' signs depend on
+    the QR implementation."""
+    Bsz, d = x.shape
+    dtype, dev = x.dtype, x.device
+    if nproj == 0:
+        return torch.eye(d, dtype=dtype, device=dev).expand(Bsz, d, d)
+    if nproj not in (3, 5, 6):
+        raise ValueError(
+            f"nproj={nproj} unsupported: 0 (nothing), 3 (translations), "
+            "5 (linear: translations + 2 rotations), or 6 "
+            "(translations + rotations)"
+        )
+    n = d // 3
+    trans = torch.zeros((3, n, 3), dtype=dtype, device=dev)
+    for ax in range(3):
+        trans[ax, :, ax] = 1.0 / np.sqrt(n)
+    trans = trans.reshape(3, d).T                      # (d, 3)
+    if nproj == 3:
+        # the generators do not depend on x: one QR serves every lane
+        Q, _ = torch.linalg.qr(trans, mode="complete")
+        return Q[:, 3:].expand(Bsz, d, d - 3)
+    pos = x.reshape(Bsz, n, 3)
+    rel = pos - pos.mean(dim=1, keepdim=True)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    gens = torch.stack(
+        [torch.linalg.cross(eye3[ax].expand_as(rel), rel).reshape(Bsz, d)
+         for ax in range(3)], dim=2,
+    )                                                  # (B, d, 3)
+    if nproj == 5:
+        U, _, _ = torch.linalg.svd(gens, full_matrices=False)
+        gens = U[:, :, :2]
+    A = torch.cat([trans.expand(Bsz, d, 3), gens], dim=2)
+    Q, _ = torch.linalg.qr(A, mode="complete")
+    return Q[:, :, nproj:]
+
+
+# ---------------------------------------------------------------------------
+# Batched masked Davidson (exact-HVP matvecs)
+# ---------------------------------------------------------------------------
+def _masked_ritz(V, AV, k, K):
+    """Galerkin eigenproblem on the masked subspace.
+
+    Padded columns are exactly zero, so ``V^T AV`` is block structured;
+    a per-lane shift that dominates the physical spectrum on the padded
+    diagonal pushes phantom Ritz values to the top, keeping the leftmost
+    (physical) pairs in the first k slots after the ascending eigh."""
+    Atilde = torch.einsum("bik,bil->bkl", V, AV)
+    Atilde = 0.5 * (Atilde + Atilde.transpose(-1, -2))
+    colmask = torch.arange(K, device=V.device)[None, :] < k[:, None]
+    pad_val = 10.0 * K * torch.amax(
+        torch.abs(Atilde), dim=(-2, -1), keepdim=True
+    ) + 1.0
+    pad = torch.where(colmask[:, None, :], 0.0, pad_val)
+    Atilde = Atilde + torch.eye(K, dtype=V.dtype, device=V.device)[None] * pad
+    lams, W = batched_eigh(Atilde)
+    return lams, W, colmask
+
+
+# ---------------------------------------------------------------------------
+# Batched TS-BFGS update (multi-secant, masked columns)
+# ---------------------------------------------------------------------------
+def _eig_inverse(lams, rcond):
+    """Reciprocal eigenvalues with the rank cut ``|lam| > rcond max|lam|``
+    (zeros for the cut ones)."""
+    amax = torch.amax(torch.abs(lams), dim=-1, keepdim=True)
+    keep = torch.abs(lams) > rcond * torch.clamp(amax, min=1e-300)
+    return torch.where(keep, 1.0 / torch.where(keep, lams, 1.0), 0.0)
+
+
+def sym_solve(A: torch.Tensor, b: torch.Tensor, rcond: float = 1e-14):
+    """Batched symmetric-indefinite solve via eigendecomposition (kept on
+    the eigh route for parity with the JAX package)."""
+    lams, V = batched_eigh(A)
+    inv = _eig_inverse(lams, rcond)
+    return torch.einsum("bij,bj,bkj,bk->bi", V, inv, V, b)
+
+
+def _sym_pinv(A: torch.Tensor, rcond: float = 1e-12) -> torch.Tensor:
+    """Batched pseudo-inverse of a symmetric matrix via eigh."""
+    lams, V = batched_eigh(A)
+    inv = _eig_inverse(lams, rcond)
+    return torch.einsum("bij,bj,bkj->bik", V, inv, V)
+
+
+def _blstsq(A: torch.Tensor, Bv: torch.Tensor, rcond: float = 1e-10):
+    """Batched minimum-norm least squares A^+ Bv for SYMMETRIC A
+    (masked-zero rows/columns fall out as rank deficiency), via eigh."""
+    lams, V = batched_eigh(A)
+    inv = _eig_inverse(lams, rcond)
+    return torch.einsum("bij,bj,bkj,bkl->bil", V, inv, V, Bv)
+
+
+def ts_bfgs_update_batched(
+    B: torch.Tensor, S: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
+    f32: bool = False, absb: str = "eigh",
+) -> torch.Tensor:
+    """Batched multi-secant TS-BFGS (``hessian_update.py:118-125``).
+
+    ``S, Y``: (B, d, K) secant pairs with inactive columns zeroed via
+    ``mask`` (B, K). ``absb``: how the |B| metric is computed — ``eigh``
+    (exact) or ``ns`` (Newton–Schulz matmuls; see :func:`_abs_ns`)."""
+    mask_f = mask.to(B.dtype)
+    S = S * mask_f[:, None, :]
+    Y = Y * mask_f[:, None, :]
+    J = Y - torch.einsum("bij,bjk->bik", B, S)
+    STY = torch.einsum("bli,blj->bij", S, Y)               # (B, K, K)
+    X1 = torch.einsum("bij,bkj->bik", STY, Y)              # (B, K, d)
+    absB = _abs_psd(B, f32, absb)
+    absBS = torch.einsum("bij,bjk->bik", absB, S)          # (B, d, K)
+    X2 = torch.einsum("bli,blj->bij", S, absBS)            # (B, K, K)
+    X2 = torch.einsum("bij,bkj->bik", X2, absBS)           # (B, K, d)
+    XS = X1 + X2                                           # (B, K, d)
+    XS_S = torch.einsum("bid,bdk->bik", XS, S)             # (B, K, K)
+    U = _blstsq(XS_S, XS).transpose(-1, -2)                # (B, d, K)
+    UJT = torch.einsum("bik,bjk->bij", U, J)
+    JTS = torch.einsum("bdi,bdj->bij", J, S)               # (B, K, K)
+    delta = UJT + UJT.transpose(-1, -2) - torch.einsum(
+        "bik,bkl,bjl->bij", U, JTS, U
+    )
+    Bp = B + delta
+    return 0.5 * (Bp + Bp.transpose(-1, -2))
+
+
+def bfgs_update_batched(
+    B: torch.Tensor, S: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
+) -> torch.Tensor:
+    """Batched multi-secant plain BFGS (``hessian_update.py:114``):
+    ``B+ = B + Y (Y^T S)^+ Y^T - B S (S^T B S)^+ S^T B`` with inactive
+    secant columns zeroed."""
+    mask_f = mask.to(B.dtype)
+    S = S * mask_f[:, None, :]
+    Y = Y * mask_f[:, None, :]
+    YTS = torch.einsum("bdi,bdj->bij", Y, S)
+    YTS = 0.5 * (YTS + YTS.transpose(-1, -2))
+    t1 = torch.einsum("bdi,bij,bej->bde", Y, _sym_pinv(YTS), Y)
+    BS = torch.einsum("bij,bjk->bik", B, S)
+    STBS = torch.einsum("bdi,bdj->bij", S, BS)
+    STBS = 0.5 * (STBS + STBS.transpose(-1, -2))
+    t2 = torch.einsum("bdi,bij,bej->bde", BS, _sym_pinv(STBS), BS)
+    Bp = B + t1 - t2
+    return 0.5 * (Bp + Bp.transpose(-1, -2))
+
+
+def _pd_mask(A: torch.Tensor) -> torch.Tensor:
+    """(B,) bool — is each (symmetric) matrix positive definite?
+    Cholesky-based, without an eigh."""
+    _, info = torch.linalg.cholesky_ex(A)
+    return info == 0
+
+
+def quasi_newton_update_batched(
+    B: torch.Tensor, S: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
+    f32: bool = False, absb: str = "eigh", method: str = "TS-BFGS",
+) -> torch.Tensor:
+    """Batched quasi-Newton update dispatch (``EnsembleConfig.update``):
+    ``TS-BFGS``, ``BFGS``, or ``BFGS_auto`` — plain BFGS on lanes where
+    both B and the secant overlap ``S^T Y`` (in the ``S^T S`` metric) are
+    positive definite, TS-BFGS elsewhere."""
+    if method == "TS-BFGS":
+        return ts_bfgs_update_batched(B, S, Y, mask, f32, absb)
+    if method == "BFGS":
+        return bfgs_update_batched(B, S, Y, mask)
+    if method != "BFGS_auto":
+        raise ValueError(f"Unknown batched update method {method}")
+    mask_f = mask.to(B.dtype)
+    Sm = S * mask_f[:, None, :]
+    Ym = Y * mask_f[:, None, :]
+    K = S.shape[-1]
+    eyeK = torch.eye(K, dtype=B.dtype, device=B.device)
+    pad = eyeK[None] * (1.0 - mask_f)[:, None, :]
+    STY = torch.einsum("bdi,bdj->bij", Sm, Ym)
+    STY = 0.5 * (STY + STY.transpose(-1, -2)) + pad
+    STS = torch.einsum("bdi,bdj->bij", Sm, Sm) + pad
+    # lam(STY, STS) > 0 <=> whitened STY is PD; STS is PD after the
+    # inactive-column identity padding
+    Ls, _ = torch.linalg.cholesky_ex(STS)
+    Li = _btrisolve_lower(Ls, eyeK.expand(Ls.shape))
+    W = torch.einsum("bij,bjk,blk->bil", Li, STY, Li)
+    use_bfgs = _pd_mask(B) & _pd_mask(0.5 * (W + W.transpose(-1, -2)))
+    B_bf = bfgs_update_batched(B, S, Y, mask)
+    B_bf = torch.where(torch.isfinite(B_bf), B_bf, 0.0)
+    B_ts = ts_bfgs_update_batched(B, S, Y, mask, f32, absb)
+    return torch.where(use_bfgs[:, None, None], B_bf, B_ts)
+
+
+def _btrisolve_lower(L: torch.Tensor, Bv: torch.Tensor) -> torch.Tensor:
+    """Batched lower-triangular solve L X = Bv."""
+    return torch.linalg.solve_triangular(L, Bv, upper=False)
+
+
+def eigh_maybe_f32(A: torch.Tensor, f32: bool = False):
+    """Batched symmetric eigh through the chokepoint
+    (:func:`sella_tpu_torch.ops.linalg.batched_eigh`); ``f32=True`` forces
+    the cast-down fast path (``EnsembleConfig.eigh_f32``)."""
+    return batched_eigh(A, "f32" if f32 else None)
+
+
+def _abs_ns(B: torch.Tensor, iters: int = 24) -> torch.Tensor:
+    """|B| via the Newton–Schulz matrix-sign iteration (float32 matmuls).
+
+    For symmetric B, |B| = sign(B) B with sign(B) from
+    X_{k+1} = 1.5 X_k - 0.5 X_k^3 seeded with X_0 = B/||B||_F.
+    Eigenvalues smaller than ~1.5^-iters of the Frobenius norm come out
+    shrunk toward zero, which is harmless for a quasi-Newton metric."""
+    dt = B.dtype
+    X = B.to(torch.float32)
+    nrm = torch.linalg.matrix_norm(X, keepdim=True)
+    X = X / torch.clamp(nrm, min=1e-30)
+    for _ in range(iters):
+        X2 = torch.matmul(X, X)
+        X = 1.5 * X - 0.5 * torch.matmul(X2, X)
+    A = torch.matmul(X, B.to(torch.float32))
+    return (0.5 * (A + A.transpose(-1, -2))).to(dt)
+
+
+def _abs_psd(B: torch.Tensor, f32: bool = False,
+             method: str = "eigh") -> torch.Tensor:
+    """|B| (batched): ``eigh`` exact, ``ns`` Newton–Schulz matmuls."""
+    if method == "ns":
+        return _abs_ns(B)
+    lams, V = eigh_maybe_f32(B, f32)
+    return torch.einsum("bik,bk,bjk->bij", V, torch.abs(lams), V)
+
+
+def bootstrap_B_batched(S, Y, mask, dim):
+    """Scaled-identity bootstrap from the geometric-mean |Ritz| value
+    (``hessian_update.py:59-67``), batched with masked columns."""
+    STY = torch.einsum("bli,blj->bij", S, Y)
+    STY = 0.5 * (STY + STY.transpose(-1, -2))
+    K = STY.shape[-1]
+    pad = torch.where(mask, 0.0, 1.0).to(STY.dtype)
+    STY = STY + torch.eye(K, dtype=STY.dtype, device=STY.device)[None] \
+        * pad[:, None, :]
+    thetas = batched_eigh(STY)[0]
+    logs = torch.log(torch.clamp(torch.abs(thetas), min=1e-12))
+    # average only over the active columns: padded eigenvalues are 1 -> log 0
+    k = torch.clamp(torch.sum(mask, dim=1), min=1)
+    lam0 = torch.exp(torch.sum(logs, dim=1) / k)
+    return lam0[:, None, None] * torch.eye(
+        dim, dtype=STY.dtype, device=STY.device
+    )[None]
+
+
+# ---------------------------------------------------------------------------
+# Batched P-RFO / QN trust-region step
+# ---------------------------------------------------------------------------
+def _rfo_secular(gsub, d, alpha, highest, niter: int = 32):
+    """Batched RFO subproblem via the arrowhead secular equation, solved
+    in the POLE-SHIFTED gap variable (LAPACK dlaed4's trick).
+
+    The alpha-scaled augmented matrix [[a^2 D, a g], [a g^T, 0]] is an
+    arrowhead with known diagonal (D from the hoisted eigh in
+    :func:`prfo_prepare_batched`), so the one extreme eigenpair the step
+    needs solves ``f(lam) = lam - sum_i a^2 g_i^2 / (lam - a^2 d_i) = 0``
+    elementwise. Iterating on the gap ``mu = |lam - edge|`` with exact pole
+    offsets keeps full relative precision where the root sits closer than
+    eps to its pole. ``highest`` reduces to the lowest-root case via
+    d -> -d, lam -> -lam; ``highest`` is a bool or a per-row (R,) bool
+    tensor, so one call can solve rows of both kinds. The alpha
+    derivative comes from implicit differentiation. Returns
+    (s, ds/dalpha)."""
+    top = torch.as_tensor(highest, device=gsub.device).expand(
+        gsub.shape[0])[:, None]
+    sign = 1.0 - 2.0 * top.to(gsub.dtype)
+    a2 = alpha[:, None] ** 2
+    p = a2 * (sign * d)                # poles of the reduced problem
+    num = a2 * gsub                    # a^2 g_i
+    g2 = num * gsub                    # a^2 g_i^2 >= 0
+    coupled = g2 > 0.0
+    gnorm = torch.sqrt(torch.sum(g2, dim=1))   # |a g|_2
+
+    p_eff = torch.where(coupled, p, BIG)
+    edge = torch.clamp(torch.amin(p_eff, dim=1), max=0.0)
+    delta = p - edge[:, None]          # >= 0, exact at the edge pole
+    # F(mu) = edge - mu + sum_i g2_i/(delta_i + mu): strictly
+    # decreasing and convex on mu > 0 with a unique root in (0, gnorm]
+    m_bind = coupled & (delta <= 0.0)
+    g2_bind = torch.sum(torch.where(m_bind, g2, 0.0), dim=1)
+    C0 = torch.sum(
+        torch.where(m_bind | ~coupled, 0.0,
+                    g2 / torch.clamp(delta, min=1e-300)),
+        dim=1,
+    )
+    b = edge + C0
+    disc = torch.sqrt(b * b + 4.0 * g2_bind)
+    # stable quadratic root of the two-term model
+    mu0 = torch.where(
+        b > 0.0, 0.5 * (b + disc),
+        2.0 * g2_bind / torch.clamp(disc - b, min=1e-300),
+    )
+    mu0 = torch.minimum(torch.clamp(mu0, min=1e-300), gnorm + 1e-30)
+
+    def F_dF(mu):
+        # uncoupled terms need no mask here: their g2 is exactly 0 and
+        # inv is finite, so they add exact zeros to both sums
+        den = delta + mu[:, None]
+        inv = torch.where(den > 1e-300, den.reciprocal(), 0.0)
+        g2inv = g2 * inv
+        F = edge - mu + torch.sum(g2inv, dim=1)
+        dF = -1.0 - torch.sum(g2inv * inv, dim=1)
+        return F, dF
+
+    mu, lo, hi = mu0, torch.zeros_like(gnorm), gnorm + 1e-30
+    for _ in range(niter):
+        F, dF = F_dF(mu)
+        pos = F > 0
+        lo = torch.where(pos, mu, lo)
+        hi = torch.where(pos, hi, mu)
+        newt = mu - F / dF
+        bad = ~torch.isfinite(newt) | (newt <= lo) | (newt >= hi)
+        mu = torch.where(bad, 0.5 * (lo + hi), newt)
+
+    # reduced-frame den = lam_low - p = -(delta + mu), exact at poles;
+    # original frame: lowest -> identity, highest -> inv flips sign
+    den = -(delta + mu[:, None])
+    ok = torch.abs(den) > 1e-300
+    inv = torch.where(ok & coupled, 1.0 / torch.where(ok, den, 1.0), 0.0)
+    inv_o = torch.where(top, -inv, inv)
+    s = num * inv_o
+
+    # dlam/dalpha by implicit differentiation of f(lam, alpha) = 0
+    _, dF = F_dF(mu)
+    df_dlam = -dF                       # = 1 + sum g2 inv^2 > 0
+    a = alpha[:, None]
+    df_dalpha = -torch.sum(
+        2 * a * gsub**2 * inv_o + 2 * a**3 * d * gsub**2 * inv_o * inv_o,
+        dim=1,
+    )
+    dlam = -df_dalpha / df_dlam
+    ds = (
+        2 * a * gsub * inv_o
+        - num * (dlam[:, None] - 2 * a * d) * inv_o * inv_o
+    )
+    return s, ds
+
+
+def prfo_prepare_batched(g, Hproj, order: int, f32: bool = False,
+                         method: str = "eigh"):
+    """Alpha-independent PRFO precomputation: one batched eigh, hoisted
+    out of the alpha root-find. ``method="jacobi"`` routes through the
+    parallel-order Jacobi (:func:`sella_tpu_torch.ops.jacobi_eigh.
+    jacobi_eigh`: the CUDA kernel for CUDA tensors, the plain version on
+    the CPU) — float32 accuracy, like ``f32=True``."""
+    if method == "jacobi":
+        # the kernel takes contiguous input only; Hproj may be a view
+        lams, V = jacobi_eigh(Hproj.contiguous())
+    else:
+        lams, V = eigh_maybe_f32(Hproj, f32)
+    gV = _bmtv(V, g)
+    return lams, V, gV
+
+
+def prfo_step_batched(prep, order: int, alpha):
+    """Batched P-RFO step in the free subspace at per-search alpha
+    (``stepper.py:160-185``): the highest root over the first ``order``
+    modes, the lowest over the rest. Both secular solves run as one
+    batch of 2B rows, each side zero-padded to a common width (zero
+    coupling adds exact zeros to every sum, so the padding changes no
+    result)."""
+    lams, V, gV = prep
+    if order == 0:
+        s, ds = _rfo_secular(gV, lams, alpha, highest=False)
+        return _bmv(V, s), _bmv(V, ds)
+    Bsz, q = lams.shape
+    w = max(order, q - order)
+
+    def two_sides(a):
+        return torch.cat([
+            torch.nn.functional.pad(a[:, :order], (0, w - order)),
+            torch.nn.functional.pad(a[:, order:], (0, w - q + order)),
+        ])
+
+    highest = torch.arange(2 * Bsz, device=lams.device) < Bsz
+    s2, ds2 = _rfo_secular(two_sides(gV), two_sides(lams),
+                           torch.cat([alpha, alpha]), highest)
+    s = torch.cat([s2[:Bsz, :order], s2[Bsz:, :q - order]], dim=1)
+    ds = torch.cat([ds2[:Bsz, :order], ds2[Bsz:, :q - order]], dim=1)
+    return _bmv(V, s), _bmv(V, ds)
+
+
+def qn_step_batched(prep, order: int, alpha):
+    """Batched shifted quasi-Newton/MMF step (``stepper.py:58-96``)."""
+    lams, V, gV = prep
+    q = lams.shape[-1]
+    sign = torch.where(
+        torch.arange(q, device=lams.device)[None, :] < order, -1.0, 1.0
+    ).to(lams.dtype)
+    L = torch.abs(lams) * sign
+    denom = L + alpha[:, None] * sign
+    sproj = gV / denom
+    s = -_bmv(V, sproj)
+    ds = _bmv(V, sproj * sign / denom)
+    return s, ds
+
+
+def _step_norm(s_full, ds_full, rs: str, natoms: int):
+    """'ras' (max per-atom displacement) or 'tr' (2-norm) with analytic
+    alpha-derivative (``restricted_step.py:127-183``)."""
+    if rs == "tr":
+        val = torch.linalg.norm(s_full, dim=1)
+        dval = torch.einsum("bi,bi->b", ds_full, s_full) / torch.clamp(
+            val, min=1e-12
+        )
+        return val, dval
+    s3 = s_full.reshape(-1, natoms, 3)
+    ds3 = ds_full.reshape(-1, natoms, 3)
+    norms = torch.linalg.norm(s3, dim=2)
+    idx = torch.argmax(norms, dim=1)      # first index on ties
+    b = torch.arange(s3.shape[0], device=s3.device)
+    val = norms[b, idx]
+    dval = torch.einsum("bi,bi->b", ds3[b, idx], s3[b, idx]) / torch.clamp(
+        val, min=1e-12
+    )
+    return val, dval
+
+
+def restricted_step_batched(
+    g_free, Hproj, Ufree, delta, cfg: EnsembleConfig, prep=None,
+):
+    """Map per-search trust radii to steps: masked Newton/bisection on
+    ||s(alpha)|| = delta (``restricted_step.py:78-120``), with a fixed
+    count of ``cfg.rs_maxiter`` iterations. Returns (s_full, smag)."""
+    stepper = prfo_step_batched if cfg.method == "prfo" else qn_step_batched
+    Bsz = g_free.shape[0]
+    dtype, dev = g_free.dtype, g_free.device
+
+    if cfg.method == "prfo":
+        alpha0, amin, amax, slope = 1.0, 0.0, 1.0, 1.0
+    else:
+        alpha0, amin, amax, slope = 0.0, 0.0, float("inf"), -1.0
+
+    if prep is None:
+        prep = prfo_prepare_batched(g_free, Hproj, cfg.order)
+
+    def eval_at(alpha):
+        s_free, ds_free = stepper(prep, cfg.order, alpha)
+        s_full = _bmv(Ufree, s_free)
+        ds_full = _bmv(Ufree, ds_free)
+        val, dval = _step_norm(s_full, ds_full, cfg.rs, cfg.natoms)
+        return s_full, val, dval
+
+    alpha = torch.full((Bsz,), alpha0, dtype=dtype, device=dev)
+    s, val, dval = eval_at(alpha)
+    # interior step: accept immediately
+    done0 = val < delta
+    smag0 = val
+
+    lower = torch.full((Bsz,), amin, dtype=dtype, device=dev)
+    upper = torch.full((Bsz,), amax, dtype=dtype, device=dev)
+    done = done0
+    for _ in range(cfg.rs_maxiter):
+        _, val, dval = eval_at(alpha)
+        err = val - delta
+        done = done | (torch.abs(err) <= cfg.rs_tol)
+
+        shrink_up = err * slope > 0
+        upper = torch.where(shrink_up, alpha, upper)
+        lower = torch.where(shrink_up, lower, alpha)
+
+        a1 = alpha - err / torch.where(dval != 0, dval, 1.0)
+        newton_bad = (
+            torch.isnan(a1) | (a1 <= lower) | (a1 >= upper) | (dval == 0)
+        )
+        a2 = 0.5 * (lower + upper)
+        # unbounded upper (qn): grow alpha geometrically
+        a2 = torch.where(
+            torch.isinf(a2), alpha + torch.clamp(0.5 * alpha, min=1.0), a2
+        )
+        alpha_new = torch.where(newton_bad, a2, a1)
+        alpha = torch.where(done, alpha, alpha_new)
+    # final evaluation at the converged alpha for not-yet-copied steps
+    s_fin, val_fin, _ = eval_at(alpha)
+    s_out = torch.where(done0[:, None], s, s_fin)
+    smag = torch.where(done0, smag0, torch.minimum(val_fin, delta))
+    return s_out, smag
+
+
+# ---------------------------------------------------------------------------
+# Potential batching
+# ---------------------------------------------------------------------------
+def _chunk_lanes(vfn, chunk):
+    """Run a vmapped-over-lanes function in ``chunk``-lane sub-batches
+    (one chunk's potential intermediates live at a time). Whole-batch
+    when chunking is disabled or the batch is not divisible."""
+    if not chunk:
+        return vfn
+
+    def run(*args):
+        B = args[0].shape[0]
+        if B <= chunk or B % chunk:
+            return vfn(*args)
+        outs = [vfn(*(a[i:i + chunk] for a in args))
+                for i in range(0, B, chunk)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o, dim=0) for o in zip(*outs))
+        return torch.cat(outs, dim=0)
+
+    return run
+
+
+def _batched_eval(potential, cell, chunk=0):
+    """(B, d) -> (f (B,), g (B, d)) through ``vmap`` of grad-and-value."""
+    def one(x):
+        g, e = grad_and_value(potential.energy)(x, cell)
+        return e, g
+
+    return _chunk_lanes(vmap(one), chunk)
+
+
+def _batched_hvp_full(potential, cell, chunk=0):
+    """Full-space exact HVP of the potential at x along v (batched,
+    forward-over-reverse)."""
+    def one(x, v):
+        return jvp(lambda y: grad(potential.energy)(y, cell), (x,), (v,))[1]
+
+    return _chunk_lanes(vmap(one), chunk)
+
+
+# ---------------------------------------------------------------------------
+# Davidson + absorption
+# ---------------------------------------------------------------------------
+def _davidson_and_absorb(potential, cell, cfg: EnsembleConfig, x, g, B,
+                         B_init, Ufree, active, generator=None):
+    """Run batched Davidson at x and absorb every HVP probe into B
+    (the reference's diag + full-probe TS-BFGS absorption,
+    ``peswrapper.py:508-556``). Returns (B_out, B_init_out, k)."""
+    K = cfg.subspace_max
+    hvp_full = _batched_hvp_full(potential, cell, cfg.eval_chunk)
+    nfree = Ufree.shape[2]
+
+    def hvp_free(v_free):
+        v_full = _bmv(Ufree, v_free)
+        Av_full = hvp_full(x, v_full)
+        return _bmtv(Ufree, Av_full), Av_full
+
+    # preconditioner: projected quasi-Newton B (identity when fresh)
+    P = torch.einsum("bji,bjk,bkl->bil", Ufree, B, Ufree)
+    eye = torch.eye(nfree, dtype=x.dtype, device=x.device)[None]
+    P = torch.where(B_init[:, None, None], P, eye)
+
+    v0 = _bmtv(Ufree, g)
+
+    P_eig = None
+    if cfg.davidson_seed == "pmode":
+        P_eig = batched_eigh(P)
+        # leftmost P-mode for warm-Hessian lanes (reference subspace
+        # init, ``eigensolvers.py:47-50``); gradient seed for bootstraps
+        v0 = torch.where(B_init[:, None], P_eig[1][:, :, 0], v0)
+
+    V, AVp, YF, k = _davidson_loop(
+        hvp_free, P, v0, cfg.gamma, K, active, generator, P_eig=P_eig,
+    )
+
+    # Rotate probes A-diagonal before the update (``peswrapper.py:546-553``)
+    lams, W, colmask = _masked_ritz(V, AVp, k, K)
+    Vr = torch.einsum("bik,bkl->bil", V, W)
+    YFr = torch.einsum("bik,bkl->bil", YF, W)
+    S_full = torch.einsum("bij,bjk->bik", Ufree, Vr)
+    mask = colmask
+
+    B_boot = bootstrap_B_batched(S_full, YFr, mask, cfg.dim)
+    B_base = torch.where(B_init[:, None, None], B, B_boot)
+    B_new = quasi_newton_update_batched(
+        B_base, S_full, YFr, mask, cfg.eigh_f32, cfg.absb, cfg.update)
+    B_out = torch.where(active[:, None, None], B_new, B)
+    return B_out, B_init | active, k
+
+
+def _davidson_loop(hvp_free2, P, v0, gamma, K, active_in, generator=None,
+                   P_eig=None):
+    """Masked batched Davidson whose hvp returns (projected, full)
+    actions; stores the full actions alongside for secant absorption.
+    ``P_eig``: optional precomputed ``(lams, Q)`` of the preconditioner.
+    ``generator`` feeds the dead-vector restart draw."""
+    Bsz, m = v0.shape
+    dtype, dev = v0.dtype, v0.device
+
+    nrm = torch.linalg.norm(v0, dim=1, keepdim=True)
+    e0 = torch.zeros((Bsz, m), dtype=dtype, device=dev)
+    e0[:, 0] = 1.0
+    v0 = torch.where(nrm > 1e-12, v0 / torch.where(nrm > 0, nrm, 1.0), e0)
+
+    Av0p, Av0f = hvp_free2(v0)
+    d_full = Av0f.shape[1]
+
+    act_f = active_in[:, None, None].to(dtype)
+    V = torch.zeros((Bsz, m, K), dtype=dtype, device=dev)
+    AVp = torch.zeros((Bsz, m, K), dtype=dtype, device=dev)
+    YF = torch.zeros((Bsz, d_full, K), dtype=dtype, device=dev)
+    V[:, :, 0] = v0
+    AVp[:, :, 0] = Av0p
+    YF[:, :, 0] = Av0f
+    V, AVp, YF = V * act_f, AVp * act_f, YF * act_f
+    k = active_in.to(torch.int32)
+    running = active_in
+    bidx = torch.arange(Bsz, device=dev)
+    kidx = torch.arange(K, device=dev)[None, :]
+
+    def ritz(V, AVp, k):
+        lams, W, colmask = _masked_ritz(V, AVp, k, K)
+        Vr = torch.einsum("bik,bkl->bil", V, W)
+        AVr = torch.einsum("bik,bkl->bil", AVp, W)
+        neg = torch.sum((lams < 0) & colmask, dim=1)
+        nneg = torch.clamp(neg, min=1)
+        R = AVr - Vr * lams[:, None, :]
+        Rnorm = torch.linalg.norm(R, dim=1)
+        conv = (Rnorm < gamma * torch.abs(lams)) & (k[:, None] > 1)
+        of_interest = (kidx < nneg[:, None]) & colmask
+        unconv = of_interest & ~conv
+        # argmax over a mask: cast first; the first index wins ties
+        seeking = torch.argmax(unconv.to(torch.int32), dim=1)
+        any_unconv = torch.any(unconv, dim=1)
+        return lams, Vr, AVr, R, seeking, any_unconv, W
+
+    # One eigendecomposition of the (iteration-independent) jd0
+    # preconditioner per Davidson call; each iteration's augmented solve
+    # is two diagonal applications via the Olsen formula.
+    lamsP, QP = P_eig if P_eig is not None else batched_eigh(P)
+
+    def pinv_shift_apply(theta, x):
+        """(P - theta I)^+ x through the precomputed eigenbasis."""
+        denom = lamsP - theta[:, None]
+        scale = torch.amax(torch.abs(lamsP), dim=1, keepdim=True) + 1e-300
+        keep = torch.abs(denom) > 1e-12 * scale
+        inv = torch.where(keep, 1.0 / torch.where(keep, denom, 1.0), 0.0)
+        return torch.einsum("bij,bj,bkj,bk->bi", QP, inv, QP, x)
+
+    def project_out(Vr, t):
+        return t - torch.einsum("bik,bk->bi", Vr,
+                                torch.einsum("bik,bi->bk", Vr, t))
+
+    def body(V, AVp, YF, k, running):
+        lams, Vr, AVr, R, seeking, any_unconv, W = ritz(V, AVp, k)
+        YFr = torch.einsum("bik,bkl->bil", YF, W)
+        run = running & any_unconv & (k < K)
+
+        theta = lams[bidx, seeking]
+        r = R[bidx, :, seeking]
+        vi = Vr[bidx, :, seeking]
+
+        # Olsen/JD correction: t = -(y1 - (v^T y1 / v^T y2) y2) with
+        # y1 = (P - theta)^+ r, y2 = (P - theta)^+ v; t is normalized
+        # below, so the global sign is immaterial.
+        y1 = pinv_shift_apply(theta, r)
+        y2 = pinv_shift_apply(theta, vi)
+        num = torch.einsum("bi,bi->b", vi, y1)
+        den = torch.einsum("bi,bi->b", vi, y2)
+        safe = torch.abs(den) > 1e-300
+        alpha = torch.where(safe, num / torch.where(safe, den, 1.0), 0.0)
+        t = y1 - alpha[:, None] * y2
+
+        tnorm = torch.linalg.norm(t, dim=1, keepdim=True)
+        bad = (~torch.all(torch.isfinite(t), dim=1, keepdim=True)) | (
+            tnorm < 1e-300
+        )
+        rnorm = torch.linalg.norm(r, dim=1, keepdim=True)
+        rhat = r / torch.where(rnorm > 0, rnorm, 1.0)
+        t = torch.where(bad, rhat, t / torch.where(tnorm > 0, tnorm, 1.0))
+        t = torch.where(
+            torch.linalg.norm(project_out(Vr, t), dim=1, keepdim=True)
+            < 1e-2, rhat, t
+        )
+        for _ in range(2):
+            t = project_out(Vr, t)
+        tnorm = torch.linalg.norm(t, dim=1, keepdim=True)
+        dead = tnorm[:, 0] < 1e-8
+        rand = torch.randn((Bsz, m), generator=generator, dtype=dtype,
+                           device=dev)
+        rand = project_out(Vr, rand)
+        rand = rand / torch.clamp(
+            torch.linalg.norm(rand, dim=1, keepdim=True), min=1e-12
+        )
+        t = torch.where(dead[:, None], rand,
+                        t / torch.where(tnorm > 0, tnorm, 1.0))
+
+        Atp, Atf = hvp_free2(t)
+
+        slot = torch.clamp(k, 0, K - 1)
+        onehot = (kidx == slot[:, None]) & run[:, None]
+        Vn = torch.where(onehot[:, None, :], t[:, :, None], Vr)
+        AVn = torch.where(onehot[:, None, :], Atp[:, :, None], AVr)
+        YFn = torch.where(onehot[:, None, :], Atf[:, :, None], YFr)
+        kn = k + run.to(k.dtype)
+        # Freeze finished lanes entirely: extra global iterations (driven
+        # by slower searches in the batch) must not keep re-rotating a
+        # finished search's subspace (batch-composition independence).
+        keep = run[:, None, None]
+        Vn = torch.where(keep, Vn, V)
+        AVn = torch.where(keep, AVn, AVp)
+        YFn = torch.where(keep, YFn, YF)
+        return Vn, AVn, YFn, kn, run
+
+    # Check for early exit once per CHUNK iterations, as the JAX package
+    # does (its chunked while_loop); each check is one host sync.
+    CHUNK = 4
+    it = 0
+    while it < K - 1 and bool(torch.any(running)):
+        for _ in range(CHUNK):
+            V, AVp, YF, k, running = body(V, AVp, YF, k, running)
+            it += 1
+    return V, AVp, YF, k
+
+
+def _validate_rigid_rank(x0: np.ndarray, nproj: int) -> None:
+    """Warn when the rigid generators are rank-deficient (linear/planar
+    cluster): the complete-QR ``free_basis`` then silently keeps a rigid
+    direction in the 'free' subspace. Host-side, init-time only."""
+    if nproj != 6:
+        return
+    import warnings
+
+    for b in range(x0.shape[0]):
+        pos = np.asarray(x0[b]).reshape(-1, 3)
+        rel = pos - pos.mean(axis=0)
+        gens = [np.cross(e, rel).ravel() for e in np.eye(3)]
+        rank = np.linalg.matrix_rank(np.stack(gens), tol=1e-8)
+        if rank < 3:
+            warnings.warn(
+                f"lane {b}: rigid rotation generators are rank-{rank} "
+                "(linear geometry) — free_basis will retain a rigid "
+                "direction; use nproj=5 (translations + the two "
+                "physical rotations) for linear geometries"
+            )
+            return  # one warning is enough
+
+
+def _as_cell(cell, like: torch.Tensor) -> torch.Tensor:
+    if cell is None:
+        return torch.zeros((3, 3), dtype=like.dtype, device=like.device)
+    return torch.as_tensor(cell, dtype=like.dtype, device=like.device)
+
+
+def init_state(potential, x0: torch.Tensor, cfg: EnsembleConfig,
+               cell=None) -> SearchState:
+    """Initialize the batched search state (pre-step, no diag yet).
+    The state lives on ``x0``'s device, in float64 (``x0`` is cast);
+    ``potential`` must live on the same device."""
+    x0 = torch.as_tensor(x0).to(default_dtype())
+    _validate_rigid_rank(x0.detach().cpu().numpy(), cfg.nproj)
+    x0 = x0.clone()
+    Bsz = x0.shape[0]
+    dtype, dev = x0.dtype, x0.device
+    cell = _as_cell(cell, x0)
+    f, g = _batched_eval(potential, cell, cfg.eval_chunk)(x0)
+    d = cfg.dim
+    i32 = dict(dtype=torch.int32, device=dev)
+    return SearchState(
+        x=x0,
+        f=f,
+        g=g,
+        B=torch.eye(d, dtype=dtype, device=dev).expand(Bsz, d, d).clone(),
+        B_init=torch.zeros(Bsz, dtype=torch.bool, device=dev),
+        delta=torch.full((Bsz,), cfg.delta0, dtype=dtype, device=dev),
+        rho=torch.ones((Bsz,), dtype=dtype, device=dev),
+        nsteps_since_diag=torch.zeros(Bsz, **i32),
+        converged=torch.zeros(Bsz, dtype=torch.bool, device=dev),
+        nsteps=torch.zeros(Bsz, **i32),
+        neval=torch.ones(Bsz, **i32),
+        nmatvec=torch.zeros(Bsz, **i32),
+        best_fmax=torch.full((Bsz,), torch.inf, dtype=dtype, device=dev),
+        stall=torch.zeros(Bsz, **i32),
+        nrestarts=torch.zeros(Bsz, **i32),
+        x_home=x0.clone(),
+        fmax_t=torch.tensor(cfg.fmax, dtype=dtype, device=dev),
+    )
+
+
+def make_step_fn(potential, cfg: EnsembleConfig, cell=None,
+                 constraints=None, comparators=None):
+    """Build the batched step ``step(state, generator) -> state``: one
+    full RS-P-RFO iteration for every search in the ensemble
+    (``optimize.py:359-440`` as a pure function of the state; the input
+    state is never modified)."""
+    if constraints is not None or comparators is not None:
+        raise NotImplementedError(
+            "constraints/comparators are not ported to sella_tpu_torch yet "
+            "(ROADMAP.md: constraints and restart branches of make_step_fn)"
+        )
+    if cfg.ncons > 0:
+        raise ValueError(
+            f"cfg.ncons == {cfg.ncons} but no constraints function given"
+        )
+    for name, on in (("restart_after", cfg.restart_after > 0),
+                     ("dmax_restart", cfg.dmax_restart > 0),
+                     ("conv_inertia", cfg.conv_inertia)):
+        if on:
+            raise NotImplementedError(
+                f"EnsembleConfig.{name} is not ported to sella_tpu_torch "
+                "yet (ROADMAP.md: constraints and restart branches of "
+                "make_step_fn)"
+            )
+
+    def _diag_at(cell_t, x_, g_, B_, B_init_, Ufree_, active_, generator):
+        if bool(torch.any(active_)):
+            return _davidson_and_absorb(
+                potential, cell_t, cfg, x_, g_, B_, B_init_, Ufree_,
+                active_, generator,
+            )
+        return B_, B_init_, torch.zeros(
+            active_.shape[0], dtype=torch.int32, device=active_.device
+        )
+
+    def step(state: SearchState, generator=None) -> SearchState:
+        cell_t = _as_cell(cell, state.x)
+        eval_fn = _batched_eval(potential, cell_t, cfg.eval_chunk)
+        Bsz = state.x.shape[0]
+        dtype, dev = state.x.dtype, state.x.device
+        act = ~state.converged
+
+        Ufree = free_basis(state.x, cfg.nproj)
+
+        # ---- initial diagonalization (first step only, eig mode) ----
+        need_init_diag = act & (~state.B_init) & cfg.eig
+        B1, B_init1, k_init = _diag_at(
+            cell_t, state.x, state.g, state.B, state.B_init, Ufree,
+            need_init_diag, generator,
+        )
+        # HVP matvecs are exact jvp's, not force calls: they count in
+        # nmatvec only
+        nmv = state.nmatvec + torch.where(need_init_diag, k_init, 0)
+        neval = state.neval
+
+        # ---- projected quantities ----
+        Hproj = torch.einsum("bji,bjk,bkl->bil", Ufree, B1, Ufree)
+        eye = torch.eye(cfg.nfree, dtype=dtype, device=dev)[None]
+        Hproj = torch.where(B_init1[:, None, None], Hproj, eye)
+        g_free = _bmtv(Ufree, state.g)
+
+        # one batched eigh of the projected Hessian serves both the
+        # trust-region stepper and the diag-scheduling inertia check
+        prep = prfo_prepare_batched(g_free, Hproj, cfg.order,
+                                    cfg.eigh_f32, cfg.prfo_eigh)
+
+        # ---- trust-region step ----
+        s_full, smag = restricted_step_batched(
+            g_free, Hproj, Ufree, state.delta, cfg, prep=prep
+        )
+        s_full = torch.where(act[:, None], s_full, 0.0)
+
+        # ---- diag scheduling (``optimize.py:362-378``) ----
+        if cfg.eig and cfg.order > 0:
+            lams_proj = prep[0]
+            # wrong inertia: too few negatives (reference trigger) or
+            # too many (near a higher-order saddle)
+            too_few = torch.any(lams_proj[:, : cfg.order] > 0, dim=1)
+            too_many = (
+                lams_proj[:, cfg.order] < 0
+                if cfg.order < cfg.nfree
+                else torch.zeros(Bsz, dtype=torch.bool, device=dev)
+            )
+            ev = act & (state.nsteps_since_diag >= cfg.nsteps_per_diag) & (
+                too_few | too_many
+            )
+        else:
+            ev = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+        if cfg.diag_every_n > 0:
+            ev = ev | (act & (state.nsteps_since_diag >= cfg.diag_every_n))
+        # compaction: serve at most diag_budget requests this step;
+        # unserved lanes keep counting and re-request next step
+        if 0 < cfg.diag_budget < Bsz:
+            # aging: serve the longest-waiting requesters first; the
+            # sort must be stable so tied lanes go in index order
+            prio = torch.where(
+                ev, -state.nsteps_since_diag,
+                torch.iinfo(torch.int32).max,
+            )
+            sel = torch.argsort(prio, stable=True)[: cfg.diag_budget]
+            served = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+            served[sel] = ev[sel]
+        else:
+            sel = None
+            served = ev
+        nsd = torch.where(
+            served | need_init_diag, 0, state.nsteps_since_diag + 1
+        ).to(torch.int32)
+
+        # ---- take the step ----
+        x_new = state.x + s_full
+        f_new, g_new = eval_fn(x_new)
+        neval = neval + act.to(torch.int32)
+
+        # ---- trust ratio (``peswrapper.py:578-594``) ----
+        df_pred = torch.einsum("bi,bi->b", state.g, s_full) + 0.5 * \
+            torch.einsum("bi,bij,bj->b", s_full, B1, s_full)
+        df_actual = f_new - state.f
+        pred_ok = torch.abs(df_pred) > cfg.pred_min
+        ratio = torch.where(
+            pred_ok, df_actual / torch.where(pred_ok, df_pred, 1.0), 1.0
+        )
+        # an uninitialized Hessian gives no meaningful prediction
+        ratio = torch.where(B_init1, ratio, 1.0)
+
+        # ---- quasi-Newton update with the step secant ----
+        dg = g_new - state.g
+        S1 = s_full[:, :, None]
+        Y1 = dg[:, :, None]
+        m1 = (torch.linalg.norm(s_full, dim=1) > 1e-8)[:, None]
+        B_boot = bootstrap_B_batched(S1, Y1, m1, cfg.dim)
+        B_base = torch.where(B_init1[:, None, None], B1, B_boot)
+        B2 = quasi_newton_update_batched(
+            B_base, S1, Y1, m1 & act[:, None],
+            cfg.eigh_f32, cfg.absb, cfg.update)
+        B2 = torch.where((act & m1[:, 0])[:, None, None], B2, B1)
+        B_init2 = B_init1 | (act & m1[:, 0])
+
+        # ---- scheduled re-diagonalization at the new point ----
+        Ufree_new = free_basis(x_new, cfg.nproj)
+        if sel is None:
+            B3, B_init3, k_ev = _diag_at(
+                cell_t, x_new, g_new, B2, B_init2, Ufree_new, served,
+                generator,
+            )
+            nmv = nmv + torch.where(served, k_ev, 0)
+        else:
+            # run Davidson only on the compacted sub-batch, then scatter
+            # back out of place (the input state stays untouched)
+            ev_g = ev[sel]
+            B_g, B_init_g, k_g = _diag_at(
+                cell_t, x_new[sel], g_new[sel], B2[sel], B_init2[sel],
+                Ufree_new[sel], ev_g, generator,
+            )
+            B3 = B2.clone()
+            B3[sel] = torch.where(ev_g[:, None, None], B_g, B2[sel])
+            B_init3 = B_init2.clone()
+            B_init3[sel] = B_init2[sel] | ev_g
+            k_full = torch.zeros_like(nmv)
+            k_full[sel] = torch.where(ev_g, k_g, 0)
+            nmv = nmv + k_full
+
+        # ---- trust radius update (``optimize.py:412-432``) ----
+        bad = (ratio < 1.0 / cfg.rho_dec) | (ratio > cfg.rho_dec)
+        good = (1.0 / cfg.rho_inc < ratio) & (ratio < cfg.rho_inc)
+        delta_new = torch.where(
+            bad,
+            torch.clamp(smag * cfg.sigma_dec, min=cfg.delta_min),
+            torch.where(
+                good,
+                torch.maximum(cfg.sigma_inc * smag, state.delta),
+                state.delta,
+            ),
+        )
+        # no meaningful prediction without an initialized Hessian: the
+        # reference SKIPS the trust update
+        delta_new = torch.where(act & B_init1, delta_new, state.delta)
+
+        # ---- convergence: max projected per-atom force ----
+        gfree_new = _bmtv(Ufree_new, g_new)
+        gp = _bmv(Ufree_new, gfree_new)
+        fmax_now = torch.amax(
+            torch.linalg.norm(gp.reshape(Bsz, cfg.natoms, 3), dim=2), dim=1
+        )
+        conv_now = fmax_now < state.fmax_t
+        conv_new = state.converged | (act & conv_now)
+
+        # ---- stagnation bookkeeping (the restart itself is not ported) ----
+        improved = fmax_now < 0.97 * state.best_fmax
+        best2 = torch.where(act & improved, fmax_now, state.best_fmax)
+        stall2 = torch.where(act & ~improved, state.stall + 1, 0).to(
+            torch.int32)
+
+        return SearchState(
+            x=torch.where(act[:, None], x_new, state.x),
+            f=torch.where(act, f_new, state.f),
+            g=torch.where(act[:, None], g_new, state.g),
+            B=B3,
+            B_init=B_init3,
+            delta=delta_new,
+            rho=torch.where(act, ratio, state.rho),
+            nsteps_since_diag=nsd,
+            converged=conv_new,
+            nsteps=state.nsteps + act.to(torch.int32),
+            neval=neval,
+            nmatvec=nmv,
+            best_fmax=best2,
+            stall=stall2,
+            nrestarts=state.nrestarts,
+            x_home=state.x_home,
+            fmax_t=state.fmax_t,
+        )
+
+    return step
+
+
+def run_ensemble(
+    potential,
+    x0: torch.Tensor,
+    cfg: EnsembleConfig,
+    max_steps: int = 100,
+    cell=None,
+    mesh=None,
+    seed: int = 0,
+    steps_per_call: int = 1,
+    constraints=None,
+    comparators=None,
+):
+    """Host loop driving the batched step until all searches converge (or
+    max_steps). The state lives on ``x0``'s device; convergence is
+    checked every ``steps_per_call`` steps (one host sync each)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_ensemble(mesh=...) is not ported to sella_tpu_torch yet "
+            "(ROADMAP.md)"
+        )
+    step = make_step_fn(potential, cfg, cell, constraints=constraints,
+                        comparators=comparators)
+    x0 = torch.as_tensor(x0)
+    state = init_state(potential, x0, cfg, cell)
+    generator = torch.Generator(device=x0.device)
+    generator.manual_seed(seed)
+    n_calls = (max_steps + steps_per_call - 1) // steps_per_call
+    for _ in range(n_calls):
+        for _ in range(steps_per_call):
+            state = step(state, generator)
+        if bool(torch.all(state.converged)):
+            break
+    return state
