@@ -11,7 +11,10 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
 1. environment: the card, its power limit, and the build of every kernel
    of the main path from the sources in the checkout;
 2. kernel vs plain: the CUDA Jacobi eigh against its plain PyTorch
-   version and float64 ``eigvalsh`` on the same card, with its timing;
+   version and float64 ``eigvalsh`` on the same card (even, odd and
+   largest n, more than two waves of blocks, a non-contiguous float64
+   view, repeat launches bit for bit), with its timing beside the plain
+   version, ``torch.linalg.eigh`` and the card's bound;
 3. potential: EMT energy, gradient and HVP on the card against a CPU copy;
 4. the slice: the headline ensemble (Cu(111) 3x4x2 slab + adatom, 1024
    lanes, fmax 1e-3) with ``prfo_eigh="jacobi"``, counting kernel launches;
@@ -42,6 +45,16 @@ RES_TOL = 5e-4
 POT_RTOL = 1e-10
 CONV_FRAC_MIN = 0.99
 MAX_STEPS = 120
+# the jacobi headline's counts on this card with the first version of the
+# kernel (1024 lanes, seed 0); a change to the kernel moves them by
+# float32 rounding carried through 35 steps, and by no more than this
+JACOBI_COUNTS = {"mean_steps_converged": 27.1416, "mean_matvecs": 42.6855,
+                 "mean_force_calls": 28.1416}
+COUNTS_RTOL = 5e-3
+# published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
+# the tensor cores, and device memory
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def _phase(name, t0):
@@ -140,10 +153,21 @@ def phase_env():
         print(je.build_log.strip())
 
 
+def _kernel_bound_ms(batch, n, sweeps, itemsize):
+    """Least time the card could take for one kernel call: the larger of
+    operations over the float32 peak and bytes over the memory rate."""
+    from sella_tpu_torch.ops.jacobi_eigh import kernel_work
+
+    flop, b_in, b_out = kernel_work(batch, n, sweeps, itemsize)
+    t_ops = flop / PEAK_F32_FLOPS * 1e3
+    t_bytes = (b_in + b_out) / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_kernel():
     """Kernel vs plain version vs float64 eigvalsh, on the card."""
     from sella_tpu_torch.ops.jacobi_eigh import jacobi_eigh_cuda, \
-        jacobi_eigh_ref
+        jacobi_eigh_ref, occupancy
 
     dev = torch.device("cuda", 0)
     cases = {
@@ -152,14 +176,28 @@ def phase_kernel():
         "odd_4x9": _rand_sym(4, 9, 3),
         "hard_3x72": np.stack([_spread_spectrum(s, 72, 3)
                                for s in range(3)]),
+        "odd_64x71": _rand_sym(64, 71, 4),
+        "max_8x128": _rand_sym(8, 128, 5),
+        "waves_1500x72": _rand_sym(1500, 72, 6),
+        # what the step hands the kernel: float64 through strides
+        "view_16x72": _rand_sym(16, 80, 7),
     }
     max_abs_err = 0.0
     for name, A_np in cases.items():
         A = torch.as_tensor(A_np, device=dev)
+        if name.startswith("view"):
+            A = A[:, 5:77, 5:77].transpose(1, 2)
+            if A.is_contiguous():
+                raise AssertionError("the view case must not be contiguous")
         w_k, V_k = jacobi_eigh_cuda(A)
+        w_2, V_2 = jacobi_eigh_cuda(A)
         w_p, V_p = jacobi_eigh_ref(A)
         w_ref = torch.linalg.eigvalsh(A)
         torch.cuda.synchronize()
+        if not (torch.equal(w_k, w_2) and torch.equal(V_k, V_2)):
+            raise AssertionError(f"two launches on {name} differ")
+        if w_k.dtype != A.dtype or V_k.dtype != A.dtype:
+            raise AssertionError(f"{name}: output dtype {w_k.dtype}")
         scale = float(w_ref.abs().max())
         err_ref = float((w_k - w_ref).abs().max()) / scale
         err_plain = float((w_k - w_p).abs().max())
@@ -169,7 +207,8 @@ def phase_kernel():
         orth = float((V_k.transpose(1, 2) @ V_k - eye).abs().max())
         print(f"  {name}: eig rel err vs eigvalsh {err_ref:.3e}, "
               f"|w_kernel - w_plain| {err_plain:.3e}, "
-              f"residual {float(res.max()):.3e}, orth {orth:.3e}")
+              f"residual {float(res.max()):.3e}, orth {orth:.3e}, "
+              f"repeat launch identical")
         if not (err_ref < EIG_RTOL and err_plain / scale < EIG_RTOL
                 and float(res.max()) < RES_TOL and orth < RES_TOL):
             raise AssertionError(f"jacobi_eigh kernel fails its gates on "
@@ -180,11 +219,28 @@ def phase_kernel():
                 raise AssertionError(f"negative count {nneg.tolist()} != 3")
         max_abs_err = max(max_abs_err, err_plain)
 
+    # timing at the main path's shape and dtype (float64 in and out; the
+    # solve is float32), beside the plain version on the same input and
+    # the one library call that computes the same function in float32
     A = torch.as_tensor(cases["rand_1024x72"], device=dev)
+    A32 = A.float()
     ms = _cuda_ms(lambda: jacobi_eigh_cuda(A), 20)
+    ms_f32 = _cuda_ms(lambda: jacobi_eigh_cuda(A32), 20)
     plain_ms = _cuda_ms(lambda: jacobi_eigh_ref(A), 2)
-    print(f"  (1024, 72, 72): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms}
+    library_ms = _cuda_ms(lambda: torch.linalg.eigh(A32), 2)
+    A4 = torch.as_tensor(_rand_sym(4096, 72, 8), device=dev)
+    ms_4096 = _cuda_ms(lambda: jacobi_eigh_cuda(A4), 20)
+    bound_ms, bound_by = _kernel_bound_ms(1024, 72, 8, A.element_size())
+    print(f"  launch of n = 72: {occupancy(72, A.dtype)}")
+    print(f"  (1024, 72, 72): kernel {ms:.3f} ms (float32 input "
+          f"{ms_f32:.3f} ms), plain {plain_ms:.3f} ms, torch.linalg.eigh "
+          f"float32 {library_ms:.3f} ms, bound {bound_ms:.3f} ms by "
+          f"{bound_by} ({bound_ms / ms:.3f} of the kernel's time)")
+    print(f"  (4096, 72, 72): kernel {ms_4096:.3f} ms")
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ms_f32_input": ms_f32,
+            "ms_4096": ms_4096}
 
 
 def phase_potential():
@@ -234,14 +290,15 @@ def run_headline(prfo_eigh, dev="cuda:0", batch=1024):
     pot, x0, cell, nat = headline_setup(batch)
     cfg = headline_config(nat, batch, prfo_eigh)
     pot = pot.to(dev)
-    x0_t = torch.as_tensor(x0, device=dev)
     cell_t = torch.as_tensor(cell, device=dev)
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     jacobi_eigh_cuda.launches = 0
     t = time.perf_counter()
-    state = run_ensemble(pot, x0_t, cfg, max_steps=MAX_STEPS, cell=cell_t)
+    # a numpy x0: the entry point places the search on ``dev`` itself
+    state = run_ensemble(pot, x0, cfg, max_steps=MAX_STEPS, cell=cell_t,
+                         device=dev)
     sync()
     wall = time.perf_counter() - t
     launches = jacobi_eigh_cuda.launches
@@ -312,6 +369,10 @@ def main():
     jac = run_headline("jacobi")
     if jac["jacobi_eigh_launches"] == 0:
         raise AssertionError("the jacobi headline never launched the kernel")
+    for k, ref in JACOBI_COUNTS.items():
+        if abs(jac[k] - ref) > COUNTS_RTOL * ref:
+            raise AssertionError(f"jacobi headline {k} = {jac[k]} moved "
+                                 f"from {ref}")
     _phase("4 headline, prfo_eigh=jacobi", t)
 
     t = time.perf_counter()
@@ -330,6 +391,13 @@ def main():
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
+        "library_ms": kern["library_ms"],
+        "launches_per_step": (jac["jacobi_eigh_launches"]
+                              / max(jac["steps_run"], 1)),
+        "ms_f32_input": kern["ms_f32_input"],
+        "ms_4096": kern["ms_4096"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -23,6 +23,7 @@ sharding over a mesh.
 """
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -489,8 +490,7 @@ def prfo_prepare_batched(g, Hproj, order: int, f32: bool = False,
     jacobi_eigh`: the CUDA kernel for CUDA tensors, the plain version on
     the CPU) — float32 accuracy, like ``f32=True``."""
     if method == "jacobi":
-        # the kernel takes contiguous input only; Hproj may be a view
-        lams, V = jacobi_eigh(Hproj.contiguous())
+        lams, V = jacobi_eigh(Hproj)
     else:
         lams, V = eigh_maybe_f32(Hproj, f32)
     gV = _bmtv(V, g)
@@ -877,12 +877,55 @@ def _as_cell(cell, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(cell, dtype=like.dtype, device=like.device)
 
 
-def init_state(potential, x0: torch.Tensor, cfg: EnsembleConfig,
-               cell=None) -> SearchState:
+def _place_x0(x0, device) -> torch.Tensor:
+    """Decide where a search runs. A tensor ``x0`` keeps its device (the
+    caller placed it) unless ``device`` names another. Anything else (a
+    numpy array, nested lists) goes to ``device``, and to the GPU when
+    none is given: the CPU is reached only by a CPU tensor or by
+    ``device="cpu"``, never by default."""
+    if isinstance(x0, torch.Tensor):
+        return x0 if device is None else x0.to(device)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "x0 is not a tensor and no device was given: the search "
+                "runs on the GPU by default, and no CUDA device is "
+                "present. Pass device=\"cpu\" (or a CPU tensor) to run on "
+                "the CPU."
+            )
+        device = "cuda"
+    return torch.as_tensor(np.asarray(x0), device=device)
+
+
+def _check_potential_device(potential, dev: torch.device) -> None:
+    """Raise if the potential's buffers or parameters live on another
+    device than the state (a potential without any runs anywhere)."""
+    if not isinstance(potential, torch.nn.Module):
+        return
+    t = next(itertools.chain(potential.buffers(), potential.parameters()),
+             None)
+    if t is None:
+        return
+    same = t.device.type == dev.type and (
+        t.device.index is None or dev.index is None
+        or t.device.index == dev.index)
+    if not same:
+        raise ValueError(
+            f"the potential lives on {t.device} but the search state on "
+            f"{dev}: move one of them (potential.to({str(dev)!r}), or place "
+            f"x0 / pass device= accordingly)"
+        )
+
+
+def init_state(potential, x0, cfg: EnsembleConfig, cell=None,
+               device=None) -> SearchState:
     """Initialize the batched search state (pre-step, no diag yet).
-    The state lives on ``x0``'s device, in float64 (``x0`` is cast);
-    ``potential`` must live on the same device."""
-    x0 = torch.as_tensor(x0).to(default_dtype())
+    A tensor ``x0`` keeps its device; any other ``x0`` goes to ``device``,
+    by default the GPU (see :func:`_place_x0`; ``device="cpu"`` asks for
+    the CPU). The state is float64 (``x0`` is cast); ``potential`` must
+    live on the same device."""
+    x0 = _place_x0(x0, device).to(default_dtype())
+    _check_potential_device(potential, x0.device)
     _validate_rigid_rank(x0.detach().cpu().numpy(), cfg.nproj)
     x0 = x0.clone()
     Bsz = x0.shape[0]
@@ -1139,10 +1182,14 @@ def run_ensemble(
     steps_per_call: int = 1,
     constraints=None,
     comparators=None,
+    device=None,
 ):
     """Host loop driving the batched step until all searches converge (or
-    max_steps). The state lives on ``x0``'s device; convergence is
-    checked every ``steps_per_call`` steps (one host sync each)."""
+    max_steps). The state lives on ``x0``'s device when ``x0`` is a
+    tensor; any other ``x0`` goes to ``device``, by default the GPU, and
+    raises where there is none (``device="cpu"`` asks for the CPU).
+    Convergence is checked every ``steps_per_call`` steps (one host sync
+    each)."""
     if mesh is not None:
         raise NotImplementedError(
             "run_ensemble(mesh=...) is not ported to sella_tpu_torch yet "
@@ -1150,7 +1197,7 @@ def run_ensemble(
         )
     step = make_step_fn(potential, cfg, cell, constraints=constraints,
                         comparators=comparators)
-    x0 = torch.as_tensor(x0)
+    x0 = _place_x0(x0, device)
     state = init_state(potential, x0, cfg, cell)
     generator = torch.Generator(device=x0.device)
     generator.manual_seed(seed)

@@ -37,25 +37,98 @@ def _rand_sym(B, n, seed):
     return A + np.swapaxes(A, 1, 2)
 
 
+def _spread_spectrum(seed, d, neg):
+    """Eigenvalues spanning 1e-4..30 with ``neg`` negatives
+    (tests/test_pallas_eigh.py:25-34)."""
+    rng = np.random.RandomState(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    lam = np.concatenate([
+        -(10.0 ** rng.uniform(-4, 1.5, neg)),
+        10.0 ** rng.uniform(-4, 1.5, d - neg),
+    ])
+    return (Q * lam) @ Q.T
+
+
+def _check_gates(A, w, V, plain=True):
+    """The gates of tests/test_pallas_eigh.py against float64 eigvalsh,
+    and agreement with the plain version to float32 rounding."""
+    A64 = A.double()
+    w, V = w.double(), V.double()
+    w_ref = torch.linalg.eigvalsh(A64)
+    scale = float(w_ref.abs().max())
+    assert float((w - w_ref).abs().max()) / scale < EIG_RTOL
+    if plain:
+        w_p, _ = je.jacobi_eigh_ref(A64)
+        assert float((w - w_p).abs().max()) / scale < EIG_RTOL
+    res = torch.linalg.norm(A64 @ V - V * w[:, None, :], dim=(1, 2))
+    assert float((res / torch.linalg.norm(A64, dim=(1, 2))).max()) < RES_TOL
+    eye = torch.eye(A.shape[-1], dtype=torch.float64, device=A.device)
+    assert float((V.transpose(1, 2) @ V - eye).abs().max()) < RES_TOL
+
+
 @pytest.mark.parametrize("B,n", [(64, 72), (8, 20), (4, 9), (3, 127),
-                                 (2, 128), (5, 1)])
+                                 (2, 128), (5, 1), (6, 2), (6, 3), (16, 71),
+                                 (16, 73), (8, 100)])
 def test_kernel_matches_plain_and_eigvalsh(cuda, B, n):
-    """n = 127 and 128 need more than 48 KB of shared memory."""
+    """Every instantiation: the compile-time size (n = 71 padded, 72) and
+    the run-time one (every other n). n = 127 and 128 need more than 48 KB
+    of shared memory; odd n pads with a decoupled 1e30 entry."""
     A = torch.as_tensor(_rand_sym(B, n, n), device=cuda)
     before = je.jacobi_eigh_cuda.launches
     w, V = je.jacobi_eigh(A)
     torch.cuda.synchronize()
     assert je.jacobi_eigh_cuda.launches == before + 1
     assert w.dtype == V.dtype == A.dtype and V.shape == A.shape
-    w_p, _ = je.jacobi_eigh_ref(A)
-    w_ref = torch.linalg.eigvalsh(A)
-    scale = float(w_ref.abs().max())
-    assert float((w - w_ref).abs().max()) / scale < EIG_RTOL
-    assert float((w - w_p).abs().max()) / scale < EIG_RTOL
-    res = torch.linalg.norm(A @ V - V * w[:, None, :], dim=(1, 2))
-    assert float((res / torch.linalg.norm(A, dim=(1, 2))).max()) < RES_TOL
-    eye = torch.eye(n, dtype=A.dtype, device=cuda)
-    assert float((V.transpose(1, 2) @ V - eye).abs().max()) < RES_TOL
+    _check_gates(A, w, V)
+
+
+@pytest.mark.parametrize("B", [1, 660, 1024, 1500])
+def test_kernel_batches_around_the_wave_size(cuda, B):
+    """660 blocks fill the card once at five blocks an SM; 1500 is more
+    than two such waves. Two launches on one input agree bit for bit."""
+    A = torch.as_tensor(_rand_sym(B, 72, 7), device=cuda)
+    w, V = je.jacobi_eigh_cuda(A)
+    w2, V2 = je.jacobi_eigh_cuda(A)
+    torch.cuda.synchronize()
+    assert torch.equal(w, w2) and torch.equal(V, V2)
+    _check_gates(A, w, V, plain=B <= 660)
+
+
+@pytest.mark.parametrize("n", [72, 71, 20, 9])
+def test_kernel_reads_strides_and_dtypes(cuda, n):
+    """A non-contiguous float64 view, its contiguous copy and its float32
+    copy go through the same float32 solve: the first two agree bit for
+    bit, and outputs come back in the caller's dtype."""
+    big = torch.as_tensor(_rand_sym(12, n + 5, n), device=cuda)
+    sub = big[:, 2:2 + n, 2:2 + n]
+    view = sub.transpose(1, 2)
+    assert not sub.is_contiguous() and not view.is_contiguous()
+    w_s, V_s = je.jacobi_eigh_cuda(sub)
+    w_c, V_c = je.jacobi_eigh_cuda(sub.contiguous())
+    w_t, V_t = je.jacobi_eigh_cuda(view)
+    w_tc, V_tc = je.jacobi_eigh_cuda(view.contiguous())
+    w_f, V_f = je.jacobi_eigh_cuda(sub.contiguous().float())
+    torch.cuda.synchronize()
+    assert w_s.dtype == V_s.dtype == torch.float64
+    assert w_f.dtype == V_f.dtype == torch.float32
+    assert torch.equal(w_s, w_c) and torch.equal(V_s, V_c)
+    assert torch.equal(w_t, w_tc) and torch.equal(V_t, V_tc)
+    # float64 -> float32 is rounded the same way by the kernel and by .float()
+    assert torch.equal(w_s.float(), w_f) and torch.equal(V_s.float(), V_f)
+    _check_gates(sub, w_s, V_s)
+    _check_gates(view, w_t, V_t)
+
+
+@pytest.mark.parametrize("d,neg", [(72, 3), (75, 5)])
+def test_kernel_hard_spectrum_negative_count(cuda, d, neg):
+    """The saddle-order decision (count of negative eigenvalues) must be
+    exact on a spectrum spanning 1e-4..30."""
+    A = torch.as_tensor(np.stack([_spread_spectrum(s, d, neg)
+                                  for s in range(4)]), device=cuda)
+    w, V = je.jacobi_eigh_cuda(A)
+    torch.cuda.synchronize()
+    _check_gates(A, w, V)
+    assert bool(((w < 0).sum(dim=1) == neg).all())
 
 
 def test_kernel_float32_input_and_empty_batch(cuda):
