@@ -11,15 +11,18 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .parallel.ensemble import SearchState
+from .parallel.ensemble import SearchState, _target_device
 
 
-def state_from_numpy(fields: Dict[str, np.ndarray], device="cpu") -> SearchState:
-    """Build a :class:`SearchState` on ``device`` from numpy arrays keyed
-    by field name (every field required)."""
+def state_from_numpy(fields: Dict[str, np.ndarray],
+                     device=None) -> SearchState:
+    """Build a :class:`SearchState` from numpy arrays keyed by field name
+    (every field required) on ``device``: by default the GPU, raising
+    where there is none; ``device="cpu"`` asks for the CPU."""
     missing = set(SearchState._fields) - set(fields)
     if missing:
         raise KeyError(f"missing SearchState fields: {sorted(missing)}")
+    device = _target_device(None, device)
     return SearchState(**{
         k: torch.as_tensor(np.array(fields[k], copy=True), device=device)
         for k in SearchState._fields

@@ -8,18 +8,23 @@ potential evaluation (``torch.func.vmap`` over lanes).
 The JAX package's structured control flow becomes host control flow:
 
 * ``lax.fori_loop`` becomes a Python ``for`` with the same fixed count;
-* ``lax.cond(jnp.any(mask), ...)`` becomes ``if bool(mask.any()):``;
+* ``lax.cond(jnp.any(mask), ...)`` becomes ``if bool(mask.any()):`` (the
+  scheduled Davidson, the restart re-evaluation and the curvature audit;
+  each is one host sync);
 * the Davidson ``lax.while_loop`` keeps its check every ``CHUNK = 4``
   iterations (the iteration count feeds the random draw and ``it < K-1``
   bounds the loop, so the cadence is part of the semantics).
 
 Randomness comes from an explicit ``torch.Generator``; trajectories match
-the JAX package only where the Davidson dead-vector draw does not fire.
+the JAX package only where the Davidson dead-vector draw and the restart
+kick do not fire (or the kick is zero).
 
-Not ported yet (each raises; see ROADMAP.md): equality/inequality
-constraints and comparators, the stagnation and dissociation restarts
-(``restart_after``, ``dmax_restart``), the ``conv_inertia`` gate, and
-sharding over a mesh.
+Also here: equality and inequality constraints (``make_step_fn(
+constraints=, comparators=)``), the stagnation/dissociation restarts and
+the ``conv_inertia`` gate, and the work queue (``refill_converged``,
+``refresh_fg``, ``make_queue_fns``, ``run_ensemble_queue``) with
+checkpoint/resume through :mod:`.checkpoint`. Not ported: sharding over a
+mesh (``mesh=`` raises).
 """
 from __future__ import annotations
 
@@ -28,13 +33,17 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import grad, grad_and_value, jvp, vmap
+from torch.func import grad, grad_and_value, jacfwd, jvp, vmap
 
 from ..config import default_dtype
 from ..ops.jacobi_eigh import jacobi_eigh
 from ..ops.linalg import batched_eigh
 
 BIG = 1e30
+# stiff positive curvature assigned to constrained-out directions in the
+# inequality (projector) path: far above any physical eigenvalue, far
+# below overflow in the alpha root-find denominators
+_CONS_SHIFT = 1e6
 
 
 class EnsembleConfig(NamedTuple):
@@ -65,9 +74,13 @@ class EnsembleConfig(NamedTuple):
     diag_budget: int = 0           # max lanes re-diagonalized per step
     #   (0 = all); unserved lanes keep their request and are served
     #   longest-waiting-first
-    restart_after: int = 0         # stagnation restart (not ported: > 0 raises)
-    restart_kick: float = 0.25     # kick stddev per DOF
-    dmax_restart: float = 0.0      # dissociation restart (not ported: > 0 raises)
+    restart_after: int = 0         # stagnation restart (0 = off): a lane
+    #   whose best fmax has not improved for this many steps restarts from
+    #   x_home plus a random kick, with B reset to the identity
+    restart_kick: float = 0.25     # kick stddev per DOF (grows with the
+    #   lane's restart count, capped at 3x)
+    dmax_restart: float = 0.0      # 0 = off; else restart a lane from home
+    #   at once when its max pair distance exceeds this (dissociation)
     prfo_eigh: str = "eigh"        # P-RFO prep eigendecomposition:
     #   "eigh" (torch.linalg.eigh, honors eigh_f32) or "jacobi" (the
     #   batched parallel-order Jacobi: the CUDA kernel on the card, its
@@ -77,7 +90,10 @@ class EnsembleConfig(NamedTuple):
     #   projected quasi-Newton preconditioner for warm-Hessian lanes)
     absb: str = "eigh"             # |B| metric in TS-BFGS: "eigh" (exact)
     #   or "ns" (Newton–Schulz matrix-sign, batched float32 matmuls)
-    conv_inertia: bool = False     # inertia convergence gate (not ported: True raises)
+    conv_inertia: bool = False     # gate convergence on the P-RFO prep
+    #   inertia matching ``order``; for order > 0 an exact-HVP audit along
+    #   the leftmost prep mode checks each newly converged lane, and a
+    #   rejected lane restarts at once (even with restart_after = 0)
     conv_curv_min: float = 1e-3    # curvature floor of the conv_inertia audit
     update: str = "TS-BFGS"        # "TS-BFGS", "BFGS" or "BFGS_auto"
     eval_chunk: int = 0            # lanes per potential-eval chunk (0 = all);
@@ -158,28 +174,63 @@ def free_basis(x: torch.Tensor, nproj: int) -> torch.Tensor:
             "5 (linear: translations + 2 rotations), or 6 "
             "(translations + rotations)"
         )
-    n = d // 3
-    trans = torch.zeros((3, n, 3), dtype=dtype, device=dev)
-    for ax in range(3):
-        trans[ax, :, ax] = 1.0 / np.sqrt(n)
-    trans = trans.reshape(3, d).T                      # (d, 3)
+    trans = _translations(d, dtype, dev)               # (d, 3)
     if nproj == 3:
         # the generators do not depend on x: one QR serves every lane
         Q, _ = torch.linalg.qr(trans, mode="complete")
         return Q[:, 3:].expand(Bsz, d, d - 3)
-    pos = x.reshape(Bsz, n, 3)
-    rel = pos - pos.mean(dim=1, keepdim=True)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    gens = torch.stack(
-        [torch.linalg.cross(eye3[ax].expand_as(rel), rel).reshape(Bsz, d)
-         for ax in range(3)], dim=2,
-    )                                                  # (B, d, 3)
+    gens = _rotations(x)                               # (B, d, 3)
     if nproj == 5:
         U, _, _ = torch.linalg.svd(gens, full_matrices=False)
         gens = U[:, :, :2]
     A = torch.cat([trans.expand(Bsz, d, 3), gens], dim=2)
     Q, _ = torch.linalg.qr(A, mode="complete")
     return Q[:, :, nproj:]
+
+
+def _translations(d: int, dtype, dev) -> torch.Tensor:
+    """(d, 3) orthonormal uniform translations."""
+    n = d // 3
+    trans = torch.zeros((3, n, 3), dtype=dtype, device=dev)
+    for ax in range(3):
+        trans[ax, :, ax] = 1.0 / np.sqrt(n)
+    return trans.reshape(3, d).T
+
+
+def _rotations(x: torch.Tensor) -> torch.Tensor:
+    """(B, d, 3) instantaneous rigid rotations about each lane's
+    centroid."""
+    Bsz, d = x.shape
+    pos = x.reshape(Bsz, d // 3, 3)
+    rel = pos - pos.mean(dim=1, keepdim=True)
+    eye3 = torch.eye(3, dtype=x.dtype, device=x.device)
+    return torch.stack(
+        [torch.linalg.cross(eye3[ax].expand_as(rel), rel).reshape(Bsz, d)
+         for ax in range(3)], dim=2,
+    )
+
+
+def constrained_free_basis(x: torch.Tensor, nproj: int,
+                           cons_jac_fn) -> torch.Tensor:
+    """Free basis with equality constraints for every lane: the orthogonal
+    complement of span(rigid generators) + span(J(x)^T), shape
+    (B, d, d - ncols) for flat positions ``x`` (B, d).
+
+    ``cons_jac_fn`` maps one lane's (d,) positions to its (m, d)
+    constraint Jacobian. As in the JAX package, ``nproj > 0`` contributes
+    the three translations, plus the three rotations when ``nproj == 6``;
+    the constraint rows must stay independent of them (pick ``nproj``
+    accordingly), so one complete QR suffices."""
+    Bsz, d = x.shape
+    J = vmap(cons_jac_fn)(x)                           # (B, m, d)
+    cols = []
+    if nproj > 0:
+        cols.append(_translations(d, x.dtype, x.device).expand(Bsz, d, 3))
+        if nproj == 6:
+            cols.append(_rotations(x))
+    A = torch.cat(cols + [J.transpose(1, 2)], dim=2)
+    Q, _ = torch.linalg.qr(A, mode="complete")
+    return Q[:, :, A.shape[2]:]
 
 
 # ---------------------------------------------------------------------------
@@ -667,25 +718,66 @@ def _batched_hvp_full(potential, cell, chunk=0):
 # Davidson + absorption
 # ---------------------------------------------------------------------------
 def _davidson_and_absorb(potential, cell, cfg: EnsembleConfig, x, g, B,
-                         B_init, Ufree, active, generator=None):
+                         B_init, Ufree, active, generator=None,
+                         cons_jac=None, cons_active=None, tang_proj=None):
     """Run batched Davidson at x and absorb every HVP probe into B
     (the reference's diag + full-probe TS-BFGS absorption,
-    ``peswrapper.py:508-556``). Returns (B_out, B_init_out, k)."""
+    ``peswrapper.py:508-556``). Returns (B_out, B_init_out, k).
+
+    With ``cons_jac`` (one lane's (d,) -> (m, d) constraint Jacobian) the
+    operator is the Lagrangian Hessian ``W v = H v - sum_k lam_k (d2c_k) v``
+    with least-squares multipliers ``lam = (J J^T)^+ J g``.
+    ``cons_active`` (B, m) masks inactive inequality rows out of the
+    multipliers; ``tang_proj`` (B, nfree, nfree), the projector onto the
+    active-constraint tangent space in free coordinates, confines the
+    operator to that space and gives the projected-out directions a stiff
+    positive shift."""
     K = cfg.subspace_max
     hvp_full = _batched_hvp_full(potential, cell, cfg.eval_chunk)
+    if cons_jac is not None:
+        J = vmap(cons_jac)(x)                          # (B, m, d)
+        if cons_active is not None:
+            J = J * cons_active[:, :, None]
+        JJt = torch.einsum("bij,bkj->bik", J, J)
+        lam = sym_solve(JJt, torch.einsum("bij,bj->bi", J, g))   # (B, m)
+        hvp_pot = hvp_full
+
+        def _corr_one(x1, v1, l1):
+            # directional derivative of J(x)^T lam at fixed lam
+            return jvp(lambda y: cons_jac(y).T @ l1, (x1,), (v1,))[1]
+
+        corr = vmap(_corr_one)
+
+        def hvp_full(xb, vb):  # noqa: F811 — Lagrangian-corrected
+            return hvp_pot(xb, vb) - corr(xb, vb, lam)
+
     nfree = Ufree.shape[2]
 
-    def hvp_free(v_free):
-        v_full = _bmv(Ufree, v_free)
-        Av_full = hvp_full(x, v_full)
-        return _bmtv(Ufree, Av_full), Av_full
+    if tang_proj is None:
+        def hvp_free(v_free):
+            v_full = _bmv(Ufree, v_free)
+            Av_full = hvp_full(x, v_full)
+            return _bmtv(Ufree, Av_full), Av_full
+    else:
+        def hvp_free(v_free):
+            vt = _bmv(tang_proj, v_free)
+            v_full = _bmv(Ufree, vt)
+            Av_full = hvp_full(x, v_full)
+            Av = _bmtv(tang_proj, _bmtv(Ufree, Av_full))
+            # stiff shift along projected-out directions
+            return Av + _CONS_SHIFT * (v_free - vt), Av_full
 
     # preconditioner: projected quasi-Newton B (identity when fresh)
     P = torch.einsum("bji,bjk,bkl->bil", Ufree, B, Ufree)
     eye = torch.eye(nfree, dtype=x.dtype, device=x.device)[None]
     P = torch.where(B_init[:, None, None], P, eye)
+    if tang_proj is not None:
+        P = (torch.einsum("bij,bjk,bkl->bil", tang_proj, P, tang_proj)
+             + _CONS_SHIFT * (eye - tang_proj))
 
     v0 = _bmtv(Ufree, g)
+    if tang_proj is not None:
+        v0 = _bmv(tang_proj, v0)
 
     P_eig = None
     if cfg.davidson_seed == "pmode":
@@ -877,24 +969,32 @@ def _as_cell(cell, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(cell, dtype=like.dtype, device=like.device)
 
 
-def _place_x0(x0, device) -> torch.Tensor:
+def _target_device(x0, device) -> torch.device:
     """Decide where a search runs. A tensor ``x0`` keeps its device (the
     caller placed it) unless ``device`` names another. Anything else (a
     numpy array, nested lists) goes to ``device``, and to the GPU when
     none is given: the CPU is reached only by a CPU tensor or by
     ``device="cpu"``, never by default."""
+    if device is not None:
+        return torch.device(device)
     if isinstance(x0, torch.Tensor):
-        return x0 if device is None else x0.to(device)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "x0 is not a tensor and no device was given: the search "
-                "runs on the GPU by default, and no CUDA device is "
-                "present. Pass device=\"cpu\" (or a CPU tensor) to run on "
-                "the CPU."
-            )
-        device = "cuda"
-    return torch.as_tensor(np.asarray(x0), device=device)
+        return x0.device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "x0 is not a tensor and no device was given: the search "
+            "runs on the GPU by default, and no CUDA device is "
+            "present. Pass device=\"cpu\" (or a CPU tensor) to run on "
+            "the CPU."
+        )
+    return torch.device("cuda")
+
+
+def _place_x0(x0, device) -> torch.Tensor:
+    """``x0`` as a tensor on the device :func:`_target_device` picks."""
+    dev = _target_device(x0, device)
+    if isinstance(x0, torch.Tensor):
+        return x0.to(dev)
+    return torch.as_tensor(np.asarray(x0), device=dev)
 
 
 def _check_potential_device(potential, dev: torch.device) -> None:
@@ -960,50 +1060,151 @@ def make_step_fn(potential, cfg: EnsembleConfig, cell=None,
     """Build the batched step ``step(state, generator) -> state``: one
     full RS-P-RFO iteration for every search in the ensemble
     (``optimize.py:359-440`` as a pure function of the state; the input
-    state is never modified)."""
-    if constraints is not None or comparators is not None:
-        raise NotImplementedError(
-            "constraints/comparators are not ported to sella_tpu_torch yet "
-            "(ROADMAP.md: constraints and restart branches of make_step_fn)"
-        )
-    if cfg.ncons > 0:
+    state is never modified).
+
+    ``constraints``: optional function ``c(x: (d,)) -> (m,)`` of
+    constraint residuals (m == cfg.ncons, the same for every lane; each
+    lane evaluates it at its own geometry), written in torch operations
+    that ``torch.func.jacfwd`` and ``vmap`` can trace. ``comparators``:
+    one of ``'eq'``, ``'lt'`` (c <= 0) or ``'gt'`` (c >= 0) per row, all
+    ``'eq'`` by default. Equalities confine the step to the tangent space
+    (``constrained_free_basis``); any inequality switches to the
+    projector path, which keeps the rigid-free basis and projects the
+    active rows out. Both add a Gauss-Newton restoration step capped at
+    the trust radius, give Davidson the Lagrangian Hessian, and require
+    ``max violation < cfg.ctol`` for convergence."""
+    if constraints is None and cfg.ncons > 0:
         raise ValueError(
             f"cfg.ncons == {cfg.ncons} but no constraints function given"
         )
-    for name, on in (("restart_after", cfg.restart_after > 0),
-                     ("dmax_restart", cfg.dmax_restart > 0),
-                     ("conv_inertia", cfg.conv_inertia)):
-        if on:
-            raise NotImplementedError(
-                f"EnsembleConfig.{name} is not ported to sella_tpu_torch "
-                "yet (ROADMAP.md: constraints and restart branches of "
-                "make_step_fn)"
+    if comparators is not None and constraints is None:
+        raise ValueError("comparators given but no constraints function")
+    audit = cfg.conv_inertia and cfg.order > 0
+    has_ineq = False
+    cons_jac = None
+    if constraints is not None:
+        if cfg.ncons <= 0:
+            raise ValueError("constraints given but cfg.ncons == 0")
+        m = tuple(constraints(torch.zeros(cfg.dim,
+                                          dtype=torch.float64)).shape)
+        if m != (cfg.ncons,):
+            raise ValueError(
+                f"constraints(x) returns shape {m}, expected"
+                f" ({cfg.ncons},) to match cfg.ncons"
             )
+        cons_jac = jacfwd(constraints)
+        if comparators is None:
+            comparators = ("eq",) * cfg.ncons
+        comparators = tuple(comparators)
+        if len(comparators) != cfg.ncons or not all(
+            c in ("eq", "lt", "gt") for c in comparators
+        ):
+            raise ValueError(
+                f"comparators must be {cfg.ncons} of 'eq'|'lt'|'gt', got"
+                f" {comparators}"
+            )
+        has_ineq = any(c != "eq" for c in comparators)
 
-    def _diag_at(cell_t, x_, g_, B_, B_init_, Ufree_, active_, generator):
+    if has_ineq:
+        # Inequality (projector) path: the active set varies per lane and
+        # per step, so the step works in the rigid-free basis and projects
+        # the ACTIVE constraint rows out of gradient and Hessian, giving
+        # the projected-out directions a stiff positive curvature.
+        # Inequalities deactivate while satisfied and re-engage on
+        # violation (the reference's disable_satisfied semantics).
+        cfg_w = cfg._replace(ncons=0)
+        kinds = np.array(comparators)
+        masks = {}
+
+        def comparator_masks(dev):
+            """(eq, lt, gt) row masks on ``dev``, copied there once."""
+            if dev not in masks:
+                masks[dev] = tuple(torch.as_tensor(kinds == k, device=dev)
+                                   for k in ("eq", "lt", "gt"))
+            return masks[dev]
+
+        def active_mask(c, J, g):
+            """Active set with a boundary layer and a multiplier-sign
+            test: violated rows are always active, comfortably satisfied
+            ones free, and a row in the |c| <= ctol layer stays active
+            while the descent direction points out of the feasible region
+            (for 'lt': J.g < 0). A purely violation-driven set chatters
+            on the boundary and never converges."""
+            eqm, ltm, gtm = comparator_masks(c.device)
+            jg = torch.einsum("bmd,bd->bm", J, g)
+            layer = torch.abs(c) <= cfg.ctol
+            return (eqm
+                    | (ltm & ((c > 0.0) | (layer & (jg < 0.0))))
+                    | (gtm & ((c < 0.0) | (layer & (jg > 0.0)))))
+
+        def basis_fn(xx):
+            return free_basis(xx, cfg.nproj)
+    elif constraints is not None:
+        cfg_w = cfg
+
+        def basis_fn(xx):
+            return constrained_free_basis(xx, cfg.nproj, cons_jac)
+    else:
+        cfg_w = cfg
+
+        def basis_fn(xx):
+            return free_basis(xx, cfg.nproj)
+
+    def tang_at(x, c, g, Ufree):
+        """Active-set mask and tangent projector (inequality path)."""
+        Jb0 = vmap(cons_jac)(x)                            # (B, m, d)
+        a = active_mask(c, Jb0, g).to(x.dtype)
+        Jb = Jb0 * a[:, :, None]
+        A = torch.einsum("bmd,bdf->bmf", Jb, Ufree)        # (B, m, f)
+        G = torch.einsum("bmf,bnf->bmn", A, A)
+        Pc = torch.einsum("bmf,bmn,bng->bfg", A, _sym_pinv(G), A)
+        eye = torch.eye(Ufree.shape[2], dtype=x.dtype, device=x.device)
+        return a, eye[None] - Pc
+
+    def _diag_at(cell_t, x_, g_, B_, B_init_, Ufree_, active_, generator,
+                 cons_active_=None, tang_proj_=None):
         if bool(torch.any(active_)):
             return _davidson_and_absorb(
-                potential, cell_t, cfg, x_, g_, B_, B_init_, Ufree_,
-                active_, generator,
+                potential, cell_t, cfg_w, x_, g_, B_, B_init_, Ufree_,
+                active_, generator, cons_jac=cons_jac,
+                cons_active=cons_active_, tang_proj=tang_proj_,
             )
         return B_, B_init_, torch.zeros(
             active_.shape[0], dtype=torch.int32, device=active_.device
         )
 
+    # the cell, the eval and the audit HVP, built once per device and
+    # dtype (the step learns them from its first state)
+    built = {}
+
+    def built_for(x):
+        key = (x.device, x.dtype)
+        if key not in built:
+            cell_t = _as_cell(cell, x)
+            built[key] = (
+                cell_t, _batched_eval(potential, cell_t, cfg.eval_chunk),
+                _batched_hvp_full(potential, cell_t, cfg.eval_chunk)
+                if audit else None)
+        return built[key]
+
     def step(state: SearchState, generator=None) -> SearchState:
-        cell_t = _as_cell(cell, state.x)
-        eval_fn = _batched_eval(potential, cell_t, cfg.eval_chunk)
+        cell_t, eval_fn, hvp_audit = built_for(state.x)
         Bsz = state.x.shape[0]
         dtype, dev = state.x.dtype, state.x.device
         act = ~state.converged
 
-        Ufree = free_basis(state.x, cfg.nproj)
+        Ufree = basis_fn(state.x)
+        if has_ineq:
+            c_cur = vmap(constraints)(state.x)
+            a_cur, Ip_cur = tang_at(state.x, c_cur, state.g, Ufree)
+        else:
+            c_cur = a_cur = Ip_cur = None
 
         # ---- initial diagonalization (first step only, eig mode) ----
         need_init_diag = act & (~state.B_init) & cfg.eig
         B1, B_init1, k_init = _diag_at(
             cell_t, state.x, state.g, state.B, state.B_init, Ufree,
-            need_init_diag, generator,
+            need_init_diag, generator, a_cur, Ip_cur,
         )
         # HVP matvecs are exact jvp's, not force calls: they count in
         # nmatvec only
@@ -1012,18 +1213,36 @@ def make_step_fn(potential, cfg: EnsembleConfig, cell=None,
 
         # ---- projected quantities ----
         Hproj = torch.einsum("bji,bjk,bkl->bil", Ufree, B1, Ufree)
-        eye = torch.eye(cfg.nfree, dtype=dtype, device=dev)[None]
+        eye = torch.eye(cfg_w.nfree, dtype=dtype, device=dev)[None]
         Hproj = torch.where(B_init1[:, None, None], Hproj, eye)
         g_free = _bmtv(Ufree, state.g)
+        if has_ineq:
+            g_free = _bmv(Ip_cur, g_free)
+            Hproj = (torch.einsum("bij,bjk,bkl->bil", Ip_cur, Hproj, Ip_cur)
+                     + _CONS_SHIFT * (eye - Ip_cur))
 
-        # one batched eigh of the projected Hessian serves both the
-        # trust-region stepper and the diag-scheduling inertia check
+        # one batched eigh of the projected Hessian serves the
+        # trust-region stepper, the diag-scheduling inertia check and the
+        # conv_inertia gate
         prep = prfo_prepare_batched(g_free, Hproj, cfg.order,
                                     cfg.eigh_f32, cfg.prfo_eigh)
 
+        # ---- inertia gate for convergence (see conv_inertia) ----
+        if cfg.conv_inertia:
+            lams_c = prep[0]
+            if cfg.order > 0:
+                bad_i = torch.any(lams_c[:, : cfg.order] > 0, dim=1)
+                if cfg.order < cfg_w.nfree:
+                    bad_i = bad_i | (lams_c[:, cfg.order] < 0)
+            else:
+                bad_i = lams_c[:, 0] < 0
+            inertia_ok = ~bad_i
+        else:
+            inertia_ok = None
+
         # ---- trust-region step ----
         s_full, smag = restricted_step_batched(
-            g_free, Hproj, Ufree, state.delta, cfg, prep=prep
+            g_free, Hproj, Ufree, state.delta, cfg_w, prep=prep
         )
         s_full = torch.where(act[:, None], s_full, 0.0)
 
@@ -1031,11 +1250,12 @@ def make_step_fn(potential, cfg: EnsembleConfig, cell=None,
         if cfg.eig and cfg.order > 0:
             lams_proj = prep[0]
             # wrong inertia: too few negatives (reference trigger) or
-            # too many (near a higher-order saddle)
+            # too many (near a higher-order saddle); bounded by the
+            # projected width, wider than cfg.nfree on the inequality path
             too_few = torch.any(lams_proj[:, : cfg.order] > 0, dim=1)
             too_many = (
                 lams_proj[:, cfg.order] < 0
-                if cfg.order < cfg.nfree
+                if cfg.order < cfg_w.nfree
                 else torch.zeros(Bsz, dtype=torch.bool, device=dev)
             )
             ev = act & (state.nsteps_since_diag >= cfg.nsteps_per_diag) & (
@@ -1065,6 +1285,28 @@ def make_step_fn(potential, cfg: EnsembleConfig, cell=None,
         ).to(torch.int32)
 
         # ---- take the step ----
+        if cons_jac is not None:
+            # Gauss-Newton restoration toward the constraint manifold,
+            # kept separate so the tangent step and the normal
+            # correction stay orthogonal to first order
+            c_now = c_cur if c_cur is not None else vmap(constraints)(
+                state.x)                                     # (B, m)
+            Jb = vmap(cons_jac)(state.x)                     # (B, m, d)
+            if has_ineq:
+                # restore only the ACTIVE rows
+                Jb = Jb * a_cur[:, :, None]
+                c_now = c_now * a_cur
+            JJt = torch.einsum("bij,bkj->bik", Jb, Jb)
+            dx_rest = -torch.einsum("bij,bi->bj", Jb, sym_solve(JJt, c_now))
+            # cap restoration at the trust radius to keep the update
+            # secant meaningful when starting far off the manifold
+            rmag = torch.linalg.norm(dx_rest, dim=1, keepdim=True)
+            cap = state.delta[:, None]
+            dx_rest = torch.where(
+                rmag > cap,
+                dx_rest * cap / torch.where(rmag > 0, rmag, 1.0), dx_rest,
+            )
+            s_full = s_full + torch.where(act[:, None], dx_rest, 0.0)
         x_new = state.x + s_full
         f_new, g_new = eval_fn(x_new)
         neval = neval + act.to(torch.int32)
@@ -1094,11 +1336,16 @@ def make_step_fn(potential, cfg: EnsembleConfig, cell=None,
         B_init2 = B_init1 | (act & m1[:, 0])
 
         # ---- scheduled re-diagonalization at the new point ----
-        Ufree_new = free_basis(x_new, cfg.nproj)
+        Ufree_new = basis_fn(x_new)
+        if has_ineq:
+            c_new = vmap(constraints)(x_new)
+            a_new, Ip_new = tang_at(x_new, c_new, g_new, Ufree_new)
+        else:
+            c_new = a_new = Ip_new = None
         if sel is None:
             B3, B_init3, k_ev = _diag_at(
                 cell_t, x_new, g_new, B2, B_init2, Ufree_new, served,
-                generator,
+                generator, a_new, Ip_new,
             )
             nmv = nmv + torch.where(served, k_ev, 0)
         else:
@@ -1108,6 +1355,8 @@ def make_step_fn(potential, cfg: EnsembleConfig, cell=None,
             B_g, B_init_g, k_g = _diag_at(
                 cell_t, x_new[sel], g_new[sel], B2[sel], B_init2[sel],
                 Ufree_new[sel], ev_g, generator,
+                None if a_new is None else a_new[sel],
+                None if Ip_new is None else Ip_new[sel],
             )
             B3 = B2.clone()
             B3[sel] = torch.where(ev_g[:, None, None], B_g, B2[sel])
@@ -1135,23 +1384,106 @@ def make_step_fn(potential, cfg: EnsembleConfig, cell=None,
 
         # ---- convergence: max projected per-atom force ----
         gfree_new = _bmtv(Ufree_new, g_new)
+        if has_ineq:
+            gfree_new = _bmv(Ip_new, gfree_new)
         gp = _bmv(Ufree_new, gfree_new)
         fmax_now = torch.amax(
             torch.linalg.norm(gp.reshape(Bsz, cfg.natoms, 3), dim=2), dim=1
         )
         conv_now = fmax_now < state.fmax_t
+        if has_ineq:
+            eqm, ltm, _ = comparator_masks(dev)
+            viol = torch.where(eqm, torch.abs(c_new),
+                               torch.where(ltm, c_new, -c_new))
+            conv_now = conv_now & (torch.amax(viol, dim=1) < cfg.ctol)
+        elif cons_jac is not None:
+            c_new = vmap(constraints)(x_new)
+            conv_now = conv_now & (
+                torch.amax(torch.abs(c_new), dim=1) < cfg.ctol)
+        if inertia_ok is not None:
+            conv_now = conv_now & inertia_ok
+        audit_fail = None
+        if audit:
+            # exact-curvature audit of the claimed leftmost mode at the
+            # new geometry: at a genuine index-1 point it is strongly
+            # negative, on a flat dissociated plateau ~0 or positive.
+            # One exact HVP, only on steps where some lane newly meets
+            # the force criterion.
+            newly = act & conv_now
+            if bool(newly.any()):
+                v_aud = _bmv(Ufree, prep[1][:, :, 0])
+                c_aud = torch.einsum("bi,bi->b", v_aud,
+                                     hvp_audit(x_new, v_aud))
+            else:
+                c_aud = torch.full((Bsz,), -torch.inf, dtype=dtype,
+                                   device=dev)
+            audit_ok = c_aud < -cfg.conv_curv_min
+            conv_now = conv_now & audit_ok
+            # a rejected lane is done-but-wrong (forces under the
+            # criterion, further steps ~zero): restart it now
+            audit_fail = newly & ~audit_ok
+            nmv = nmv + newly.to(torch.int32)
         conv_new = state.converged | (act & conv_now)
 
-        # ---- stagnation bookkeeping (the restart itself is not ported) ----
+        # ---- stagnation restart (no reference analog; see config) ----
         improved = fmax_now < 0.97 * state.best_fmax
         best2 = torch.where(act & improved, fmax_now, state.best_fmax)
         stall2 = torch.where(act & ~improved, state.stall + 1, 0).to(
             torch.int32)
+        x_fin, f_fin, g_fin = x_new, f_new, g_new
+        nrst = state.nrestarts
+        # the machinery also serves the audit's rejections, which restart
+        # even with the stagnation restart off (restart_after = 0)
+        if cfg.restart_after > 0 or audit_fail is not None:
+            if cfg.restart_after > 0:
+                restart = act & ~conv_new & (stall2 >= cfg.restart_after)
+            else:
+                restart = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+            if audit_fail is not None:
+                restart = restart | (audit_fail & ~conv_new)
+            if cfg.dmax_restart > 0:
+                # a cluster whose max pair distance exceeds the threshold
+                # has dissociated onto flat landscape: restart it now
+                pos_b = x_new.reshape(Bsz, cfg.natoms, 3)
+                dvec = pos_b[:, :, None, :] - pos_b[:, None, :, :]
+                dmax = torch.sqrt(torch.amax(
+                    torch.sum(dvec * dvec, dim=-1), dim=(1, 2)))
+                restart = restart | (
+                    act & ~conv_new & (dmax > cfg.dmax_restart))
+            if bool(restart.any()):
+                # from the PRISTINE start plus a kick whose stddev grows
+                # with the attempt count, capped at 3x (an uncapped kick
+                # eventually exceeds the bond length). The kick is drawn
+                # only here, so runs without restarts keep the generator
+                # stream of the Davidson draws unchanged.
+                scale = cfg.restart_kick * torch.clamp(
+                    1.0 + 0.5 * state.nrestarts.to(dtype), max=3.0)
+                kick = scale[:, None] * torch.randn(
+                    x_new.shape, generator=generator, dtype=dtype,
+                    device=dev)
+                x_fin = torch.where(restart[:, None], state.x_home + kick,
+                                    x_new)
+                f_k, g_k = eval_fn(x_fin)
+                f_fin = torch.where(restart, f_k, f_new)
+                g_fin = torch.where(restart[:, None], g_k, g_new)
+                neval = neval + restart.to(torch.int32)
+                # reset curvature to the identity but KEEP B_init: the
+                # wrong-inertia trigger then requests a re-diag through
+                # the budget-compacted path instead of a full-batch
+                # bootstrap Davidson
+                eye_d = torch.eye(cfg.dim, dtype=dtype, device=dev)[None]
+                B3 = torch.where(restart[:, None, None], eye_d, B3)
+                nsd = torch.where(restart, cfg.nsteps_per_diag, nsd).to(
+                    torch.int32)
+                delta_new = torch.where(restart, cfg.delta0, delta_new)
+                best2 = torch.where(restart, torch.inf, best2)
+                stall2 = torch.where(restart, 0, stall2).to(torch.int32)
+                nrst = nrst + restart.to(torch.int32)
 
         return SearchState(
-            x=torch.where(act[:, None], x_new, state.x),
-            f=torch.where(act, f_new, state.f),
-            g=torch.where(act[:, None], g_new, state.g),
+            x=torch.where(act[:, None], x_fin, state.x),
+            f=torch.where(act, f_fin, state.f),
+            g=torch.where(act[:, None], g_fin, state.g),
             B=B3,
             B_init=B_init3,
             delta=delta_new,
@@ -1163,7 +1495,7 @@ def make_step_fn(potential, cfg: EnsembleConfig, cell=None,
             nmatvec=nmv,
             best_fmax=best2,
             stall=stall2,
-            nrestarts=state.nrestarts,
+            nrestarts=nrst,
             x_home=state.x_home,
             fmax_t=state.fmax_t,
         )
@@ -1208,3 +1540,363 @@ def run_ensemble(
         if bool(torch.all(state.converged)):
             break
     return state
+
+
+# ---------------------------------------------------------------------------
+# Work queue: refill converged lanes from a queue of starts
+# ---------------------------------------------------------------------------
+def refill_converged(state: SearchState, x_new: torch.Tensor,
+                     avail: torch.Tensor, cfg: EnsembleConfig,
+                     inherit_B: bool = False):
+    """Replace converged lanes with fresh starts from a work queue.
+
+    ``x_new``: (B, d) replacement geometries; ``avail``: (B,) bool — which
+    rows of x_new hold real work. A lane is refilled when it is converged
+    AND its replacement is available; refilled lanes are fully reset
+    (fresh identity Hessian, trust radius, counters; f and g zeroed until
+    :func:`refresh_fg`). Returns the new state and the refill mask.
+
+    ``inherit_B=True`` keeps the lane's converged quasi-Newton Hessian as
+    the fresh search's initial one (B_init stays True, so no bootstrap
+    Davidson runs): a good warm start when the queue holds perturbations
+    of one structure, a bad one for unrelated structures."""
+    take = state.converged & avail
+    tk = take[:, None]
+    d = cfg.dim
+    Bsz = state.x.shape[0]
+    dev = state.x.device
+    i32 = torch.int32
+    if inherit_B:
+        B, B_init = state.B, state.B_init | take
+    else:
+        eye = torch.eye(d, dtype=state.B.dtype, device=dev).expand(Bsz, d, d)
+        B = torch.where(take[:, None, None], eye, state.B)
+        B_init = state.B_init & ~take
+    new_state = SearchState(
+        x=torch.where(tk, x_new, state.x),
+        f=torch.where(take, 0.0, state.f),
+        g=torch.where(tk, 0.0, state.g),
+        B=B,
+        B_init=B_init,
+        delta=torch.where(take, cfg.delta0, state.delta),
+        rho=torch.where(take, 1.0, state.rho),
+        nsteps_since_diag=torch.where(take, 0, state.nsteps_since_diag).to(
+            i32),
+        converged=state.converged & ~take,
+        nsteps=torch.where(take, 0, state.nsteps).to(i32),
+        neval=torch.where(take, 0, state.neval).to(i32),
+        nmatvec=torch.where(take, 0, state.nmatvec).to(i32),
+        best_fmax=torch.where(take, torch.inf, state.best_fmax),
+        stall=torch.where(take, 0, state.stall).to(i32),
+        nrestarts=torch.where(take, 0, state.nrestarts).to(i32),
+        x_home=torch.where(tk, x_new, state.x_home),
+        fmax_t=state.fmax_t,
+    )
+    return new_state, take
+
+
+def refresh_fg(state: SearchState, potential, cfg: EnsembleConfig,
+               cell=None, mask: Optional[torch.Tensor] = None
+               ) -> SearchState:
+    """Recompute (f, g) for all lanes — call once after a refill.
+
+    ``mask`` marks the lanes whose geometry actually changed (the refill
+    mask): only those lanes' neval counters advance, so per-search force
+    accounting stays exact."""
+    f, g = _batched_eval(potential, _as_cell(cell, state.x),
+                         cfg.eval_chunk)(state.x)
+    inc = 1 if mask is None else mask.to(state.neval.dtype)
+    return state._replace(f=f, g=g, neval=state.neval + inc)
+
+
+def make_queue_fns(potential, cfg: EnsembleConfig, cell=None,
+                   constraints=None, comparators=None,
+                   refill_every: int = 10, inherit_B: bool = False):
+    """The ``(step_chunk, refill, refresh, snapshot)`` 4-tuple for
+    :func:`run_ensemble_queue` — build once, pass to every call that
+    shares the config. ``refill_every`` must match the queue call.
+
+    * ``step_chunk(state, generator)`` runs ``refill_every`` steps;
+    * ``refill(state, x_new, avail)`` is :func:`refill_converged`;
+    * ``refresh(state, mask)`` recomputes (f, g) with an eval function
+      built once (per device) and advances ``neval`` on ``mask``;
+    * ``snapshot(state)`` packs ``converged``, ``nsteps``, ``f``,
+      ``nmatvec``, ``neval`` and ``x`` into one float64 buffer and
+      returns it on the host: one device-to-host copy per harvest cycle
+      (the counters are exact in float64 below 2^53)."""
+    step1 = make_step_fn(potential, cfg, cell, constraints=constraints,
+                         comparators=comparators)
+
+    def step_chunk(state, generator=None):
+        for _ in range(refill_every):
+            state = step1(state, generator)
+        return state
+
+    def refill(state, x_new, avail):
+        return refill_converged(state, x_new, avail, cfg,
+                                inherit_B=inherit_B)
+
+    evals = {}
+
+    def refresh(state, mask):
+        dev = state.x.device
+        if dev not in evals:
+            evals[dev] = _batched_eval(potential, _as_cell(cell, state.x),
+                                       cfg.eval_chunk)
+        f, g = evals[dev](state.x)
+        return state._replace(
+            f=f, g=g, neval=state.neval + mask.to(state.neval.dtype))
+
+    def snapshot(state):
+        dt = state.x.dtype
+        return torch.cat([
+            state.converged.to(dt),
+            state.nsteps.to(dt),
+            state.f.to(dt),
+            state.nmatvec.to(dt),
+            state.neval.to(dt),
+            state.x.reshape(-1),
+        ]).cpu().numpy()
+
+    return step_chunk, refill, refresh, snapshot
+
+
+def run_ensemble_queue(
+    potential,
+    x0_all,
+    cfg: EnsembleConfig,
+    batch: int,
+    max_steps_per_search: int = 300,
+    cell=None,
+    refill_every: int = 10,
+    seed: int = 0,
+    constraints=None,
+    comparators=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 1,
+    resume: bool = False,
+    fns=None,
+    inherit_B: bool = False,
+    max_retries: int = 0,
+    retry_kick: float = 0.3,
+    retry_step_growth: float = 0.0,
+    retry_step_cap: Optional[int] = None,
+    mesh=None,
+    drain_handoff: int = 0,
+    device=None,
+):
+    """Process an arbitrarily large work set with a fixed device batch.
+
+    Converged searches are harvested every ``refill_every`` steps and
+    their lanes refilled from the queue, so no lane idles on a finished
+    search. Returns one ``(x_final, f, nsteps, converged, nmatvec,
+    neval)`` tuple per input, in input order. The searches run on
+    ``x0_all``'s device when it is a tensor; any other ``x0_all`` goes to
+    ``device``, by default the GPU, and raises where there is none
+    (``device="cpu"`` asks for the CPU).
+
+    ``max_retries``: a search that times out unconverged is re-enqueued
+    (up to this many times) from its ORIGINAL geometry plus a kick of
+    stddev ``sqrt(attempt) * retry_kick`` per DOF, drawn from a numpy
+    ``RandomState`` (so retry starts are the JAX package's exactly).
+    Retried searches report cumulative counts over all attempts.
+    ``retry_step_growth``: attempt ``k`` (0 = first try) gets a budget of
+    ``max_steps_per_search * (1 + growth * k)`` steps, capped at
+    ``retry_step_cap`` if given.
+
+    ``checkpoint_path``: the state plus the host bookkeeping (lane->input
+    map, queue cursor, results, retries, the step counter and the
+    generator's state) is saved every ``checkpoint_every`` harvest
+    cycles; ``resume=True`` continues from an existing checkpoint.
+
+    ``fns``: the 4-tuple of :func:`make_queue_fns`, to reuse across calls.
+    ``inherit_B``: see :func:`refill_converged`.
+
+    ``drain_handoff``: once the queue is exhausted (no fresh inputs, no
+    pending retries) and at most this many unconverged lanes remain,
+    return them at once as UNCONVERGED results with their cumulative
+    cost and current geometry, for the caller to finish in a smaller
+    batch. ``mesh=`` is not ported and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_ensemble_queue(mesh=...) is not ported to sella_tpu_torch "
+            "yet (ROADMAP.md)"
+        )
+    dev = _target_device(x0_all, device)
+    x0_np = (x0_all.detach().cpu().numpy() if isinstance(x0_all, torch.Tensor)
+             else np.asarray(x0_all))   # host copy: refills slice it
+    total = x0_np.shape[0]
+    # a work set smaller than the device batch: clamp
+    batch = min(batch, total)
+    if fns is None:
+        fns = make_queue_fns(potential, cfg, cell,
+                             constraints=constraints,
+                             comparators=comparators,
+                             refill_every=refill_every,
+                             inherit_B=inherit_B)
+    step_chunk, refill, refresh, snapshot = fns
+
+    loaded = None
+    if checkpoint_path is not None and resume:
+        import os
+
+        from .checkpoint import load_queue
+
+        if os.path.exists(checkpoint_path):
+            loaded = load_queue(
+                checkpoint_path, SearchState, with_retry_state=True,
+                fmax_default=cfg.fmax, device=dev,
+            )
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
+    it0 = 0
+    if loaded is not None:
+        state, origin, next_idx, results, retry_state = loaded
+        retries = retry_state["retries"]
+        pending = retry_state["pending"]   # (origin_idx, x_start) FIFO
+        spent = retry_state["spent"]       # origin -> (ns, nmv, nev)
+        # continue the random streams where the interrupted run left
+        # them instead of replaying kicks and probes already used
+        it0 = retry_state["it"]
+        if retry_state["rng_state"] is not None:
+            generator.set_state(retry_state["rng_state"].cpu())
+    else:
+        state = init_state(potential, torch.as_tensor(x0_np[:batch],
+                                                      device=dev), cfg, cell)
+        origin = np.arange(batch)          # which input each lane holds
+        next_idx = batch
+        results = {}
+        retries = {}
+        pending = []
+        spent = {}
+    kick_rng = np.random.RandomState(((seed ^ 0x5EED) + it0) % 2**32)
+
+    def save():
+        from .checkpoint import save_queue
+
+        save_queue(
+            checkpoint_path, state, origin, next_idx, results,
+            retry_state=dict(pending=pending, retries=retries, spent=spent),
+            it=it, rng_state=generator.get_state(),
+        )
+
+    cycle = 0
+    it = it0
+    while len(results) < total:
+        state = step_chunk(state, generator)
+        it += refill_every
+
+        buf = snapshot(state)                  # one device->host copy
+        Bsz = state.x.shape[0]
+        conv = buf[0:Bsz] != 0.0
+        nsteps = buf[Bsz:2 * Bsz].astype(np.int64)
+        fs = buf[2 * Bsz:3 * Bsz]
+        nmv = buf[3 * Bsz:4 * Bsz].astype(np.int64)
+        nev = buf[4 * Bsz:5 * Bsz].astype(np.int64)
+        xs = buf[5 * Bsz:].reshape(Bsz, -1)
+        if max_retries and retry_step_growth:
+            budgets = np.asarray([
+                max_steps_per_search
+                * (1.0 + retry_step_growth * retries.get(int(o), 0))
+                for o in origin
+            ])
+            if retry_step_cap is not None:
+                budgets = np.minimum(budgets, retry_step_cap)
+            done = conv | (nsteps >= budgets)
+        else:
+            done = conv | (nsteps >= max_steps_per_search)
+        if not np.any(done):
+            continue
+        for lane in np.where(done)[0]:
+            oi = int(origin[lane])
+            if oi < 0 or oi in results:
+                continue
+            s0, m0, e0 = spent.get(oi, (0, 0, 0))
+            if (not conv[lane]) and retries.get(oi, 0) < max_retries:
+                # timed out: back of the queue, from the ORIGINAL
+                # geometry plus a kick with sqrt growth in the attempt
+                # (a linear one passes the bond length in a few attempts)
+                attempt = retries.get(oi, 0) + 1
+                retries[oi] = attempt
+                spent[oi] = (s0 + int(nsteps[lane]),
+                             m0 + int(nmv[lane]), e0 + int(nev[lane]))
+                pending.append((
+                    oi,
+                    x0_np[oi]
+                    + np.sqrt(attempt) * retry_kick * kick_rng.normal(
+                        size=xs[lane].shape
+                    ),
+                ))
+                continue
+            results[oi] = (
+                xs[lane].copy(), float(fs[lane]),
+                s0 + int(nsteps[lane]), bool(conv[lane]),
+                m0 + int(nmv[lane]), e0 + int(nev[lane]),
+            )
+
+        if drain_handoff and next_idx >= total and not pending:
+            # queue exhausted and nothing awaiting retry: hand the last
+            # few unconverged lanes back. This runs BEFORE the refill
+            # below, so every active lane's snapshot row is its own
+            # (after a refill a lane could hold a new occupant with the
+            # previous occupant's stale row)
+            active = [
+                lane for lane in range(Bsz)
+                if origin[lane] >= 0 and int(origin[lane]) not in results
+            ]
+            if len(active) <= drain_handoff:
+                for lane in active:
+                    oi = int(origin[lane])
+                    s0, m0, e0 = spent.get(oi, (0, 0, 0))
+                    results[oi] = (
+                        xs[lane].copy(), float(fs[lane]),
+                        s0 + int(nsteps[lane]), False,
+                        m0 + int(nmv[lane]), e0 + int(nev[lane]),
+                    )
+                if checkpoint_path is not None:
+                    # the break skips the end-of-cycle save: persist the
+                    # handed-off results, or a resume would replay the
+                    # drain this handoff skipped
+                    save()
+                break
+
+        # refill from the queue (timed-out lanes are marked converged so
+        # the refill mask picks them up too): retried jobs first, then
+        # fresh inputs; the geometries go to the device in one copy
+        done_t = torch.as_tensor(done, device=dev)
+        state = state._replace(converged=done_t)
+        x_new = np.zeros((batch, cfg.dim))
+        avail = np.zeros(batch, dtype=bool)
+        new_origin = origin.copy()
+        for lane in np.where(done)[0]:
+            if pending:
+                oi, xstart = pending.pop(0)
+                x_new[lane] = xstart
+                avail[lane] = True
+                new_origin[lane] = oi
+            elif next_idx < total:
+                x_new[lane] = x0_np[next_idx]
+                avail[lane] = True
+                new_origin[lane] = next_idx
+                next_idx += 1
+            else:
+                new_origin[lane] = -1  # idle lane
+        origin = new_origin
+
+        if np.any(avail):
+            avail_t = torch.as_tensor(avail, device=dev)
+            state, _ = refill(state, torch.as_tensor(x_new, device=dev),
+                              avail_t)
+            state = refresh(state, avail_t)
+        # else: queue drained — refill would be a no-op and refresh would
+        # re-pay a full-batch force evaluation for identical (f, g).
+        # Idle lanes stay marked converged so they are skipped.
+        state = state._replace(
+            converged=state.converged | torch.as_tensor(origin < 0,
+                                                        device=dev))
+
+        cycle += 1
+        if checkpoint_path is not None and cycle % checkpoint_every == 0:
+            save()
+
+    return [results[i] for i in range(total)]

@@ -199,3 +199,77 @@ def test_ensemble_step_card_matches_cpu(cuda, prfo_eigh, rtol):
     for f in ("x", "f", "g", "B", "delta"):
         a, b = getattr(out_gpu, f).cpu(), getattr(out_cpu, f)
         assert float((a - b).abs().max() / b.abs().max()) < rtol, f
+
+
+def _lj4_starts(total, seed=3, pert=0.1):
+    tet = np.array([[0, 0, 0], [1, 0, 0], [0.5, np.sqrt(3) / 2, 0],
+                    [0.5, np.sqrt(3) / 6, np.sqrt(2.0 / 3)]]) * 1.12
+    rng = np.random.RandomState(seed)
+    return (tet[None] + pert * rng.normal(size=(total, 4, 3))).reshape(
+        total, 12)
+
+
+def _watched_fns(cfg, seen):
+    """make_queue_fns whose snapshot records every state field's device."""
+    from sella_tpu_torch.potentials import LennardJones
+
+    step, refill, refresh, snapshot = T.make_queue_fns(
+        LennardJones(), cfg, refill_every=5)
+
+    def watched(state):
+        seen.update(t.device.type for t in state)
+        return snapshot(state)
+
+    return step, refill, refresh, watched
+
+
+@pytest.mark.parametrize("x0_kind", ["cuda_tensor", "numpy"])
+def test_queue_keeps_state_on_the_card(cuda, x0_kind):
+    """A CUDA ``x0_all`` keeps the queue on the card, and a numpy one goes
+    to the GPU without being asked; the results match a CPU run of the
+    same queue (qn, no Davidson: float64 LAPACK vs cuSOLVER only)."""
+    from sella_tpu_torch.potentials import LennardJones
+
+    cfg = T.EnsembleConfig(natoms=4, order=0, fmax=1e-3, eig=False,
+                           method="qn", sigma_dec=0.9, rho_dec=100.0)
+    x0 = _lj4_starts(6)
+    seen = set()
+    x0_all = torch.as_tensor(x0, device=cuda) if x0_kind == "cuda_tensor" \
+        else x0
+    res = T.run_ensemble_queue(LennardJones(), x0_all, cfg, batch=4,
+                               max_steps_per_search=100, refill_every=5,
+                               fns=_watched_fns(cfg, seen))
+    assert seen == {"cuda"}
+    ref = T.run_ensemble_queue(LennardJones(), x0, cfg, batch=4,
+                               max_steps_per_search=100, refill_every=5,
+                               device="cpu")
+    assert [r[3] for r in res] == [r[3] for r in ref]
+    for a, b in zip(res, ref):
+        if a[3]:
+            assert abs(a[1] - b[1]) < 1e-8
+
+
+def test_checkpoint_saved_on_the_card_loads_to_the_card(cuda, tmp_path):
+    import os
+
+    from sella_tpu_torch.parallel import checkpoint as ckpt
+    from sella_tpu_torch.potentials import LennardJones
+
+    cfg = T.EnsembleConfig(natoms=4, order=1, fmax=1e-3)
+    st = T.init_state(LennardJones(), torch.as_tensor(_lj4_starts(4),
+                                                      device=cuda), cfg)
+    st = T.make_step_fn(LennardJones(), cfg)(
+        st, torch.Generator(device=cuda).manual_seed(0))
+    path = os.path.join(tmp_path, "q.pt")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ckpt.save_queue(path, st, np.arange(4), 4, {}, it=5,
+                    rng_state=gen.get_state())
+    back, origin, nxt, res, retry = ckpt.load_queue(path,
+                                                    with_retry_state=True)
+    for name, a, b in zip(st._fields, st, back):
+        assert b.device == a.device and b.dtype == a.dtype, name
+        assert torch.equal(a, b), name
+    gen2 = torch.Generator(device=cuda)
+    gen2.set_state(retry["rng_state"])
+    assert torch.equal(torch.randn(8, generator=gen, device=cuda),
+                       torch.randn(8, generator=gen2, device=cuda))

@@ -57,7 +57,7 @@ def test_one_step_from_jax_state(name, k):
     jcfg, tcfg = J.EnsembleConfig(**kw), T.EnsembleConfig(**kw)
     js, jstep, key = _jax_state_after(jpot, x0, jcfg, cell, k)
     fields = {f: np.asarray(getattr(js, f)) for f in J.SearchState._fields}
-    ts = state_from_numpy(fields)
+    ts = state_from_numpy(fields, device="cpu")
     js1 = jstep(js, jax.random.fold_in(key, k))
     tstep = T.make_step_fn(tpot, tcfg, torch.as_tensor(cell))
     ts1 = tstep(ts, torch.Generator().manual_seed(0))
@@ -78,7 +78,7 @@ def test_state_round_trip_is_exact():
     jpot, _, x0, cell, kw, _ = _route("lj4_eigh")
     js, _, _ = _jax_state_after(jpot, x0, J.EnsembleConfig(**kw), cell, 2)
     fields = {f: np.asarray(getattr(js, f)) for f in J.SearchState._fields}
-    ts = state_from_numpy(fields)
+    ts = state_from_numpy(fields, device="cpu")
     assert ts.x.dtype == torch.float64 and ts.nsteps.dtype == torch.int32
     assert ts.converged.dtype == torch.bool and ts.fmax_t.dim() == 0
     back = state_to_numpy(ts)
@@ -87,23 +87,38 @@ def test_state_round_trip_is_exact():
         assert back[f].dtype == a.dtype
         np.testing.assert_array_equal(back[f], a)
     with pytest.raises(KeyError):
-        state_from_numpy({f: a for f, a in fields.items() if f != "B"})
+        state_from_numpy({f: a for f, a in fields.items() if f != "B"},
+                         device="cpu")
 
 
 def test_unported_options_raise():
+    """Only ``mesh=`` is left unported; the restart, inertia and
+    constraint options build a step, and inconsistent constraint
+    arguments are refused as in the JAX package."""
     pot = TLJ()
     for kw in (dict(restart_after=10), dict(dmax_restart=3.0),
                dict(conv_inertia=True)):
-        with pytest.raises(NotImplementedError):
-            T.make_step_fn(pot, T.EnsembleConfig(natoms=4, **kw))
-    with pytest.raises(NotImplementedError):
-        T.make_step_fn(pot, T.EnsembleConfig(natoms=4, ncons=1),
-                       constraints=lambda x: x[:1])
+        assert callable(T.make_step_fn(pot, T.EnsembleConfig(natoms=4, **kw)))
+    assert callable(T.make_step_fn(pot, T.EnsembleConfig(natoms=4, ncons=1),
+                                   constraints=lambda x: x[:1]))
     with pytest.raises(ValueError):
         T.make_step_fn(pot, T.EnsembleConfig(natoms=4, ncons=1))
+    with pytest.raises(ValueError):
+        T.make_step_fn(pot, T.EnsembleConfig(natoms=4),
+                       constraints=lambda x: x[:1])
+    with pytest.raises(ValueError):
+        T.make_step_fn(pot, T.EnsembleConfig(natoms=4, ncons=2),
+                       constraints=lambda x: x[:1])
+    with pytest.raises(ValueError):
+        T.make_step_fn(pot, T.EnsembleConfig(natoms=4, ncons=1),
+                       constraints=lambda x: x[:1], comparators=("ge",))
     with pytest.raises(NotImplementedError):
         T.run_ensemble(pot, torch.as_tensor(_graft_lj4_starts(lanes=2)),
                        T.EnsembleConfig(natoms=4), mesh=object())
+    with pytest.raises(NotImplementedError):
+        T.run_ensemble_queue(pot, torch.as_tensor(_graft_lj4_starts(lanes=2)),
+                             T.EnsembleConfig(natoms=4), batch=2,
+                             mesh=object())
 
 
 def test_init_state_is_float64_on_x0_device():

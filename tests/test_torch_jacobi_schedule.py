@@ -158,6 +158,21 @@ def test_numpy_x0_without_device_needs_a_gpu(entry, monkeypatch):
         getattr(st, entry)(st.LennardJones(), _lj4(), cfg)
 
 
+def test_state_from_numpy_follows_the_device_rule(monkeypatch):
+    """Carrying a state over from numpy lands on the GPU by default, the
+    CPU only when asked, and raises without a GPU."""
+    from sella_tpu_torch.interop import state_from_numpy, state_to_numpy
+
+    s = st.init_state(st.LennardJones(), torch.as_tensor(_lj4()),
+                      st.EnsembleConfig(natoms=4, order=0))
+    fields = state_to_numpy(s)
+    back = state_from_numpy(fields, device="cpu")
+    assert all(t.device.type == "cpu" for t in back)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        state_from_numpy(fields)
+
+
 def test_tensor_x0_keeps_its_device_without_asking(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     s = st.init_state(st.LennardJones(), torch.as_tensor(_lj4()),

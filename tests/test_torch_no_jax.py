@@ -1,8 +1,9 @@
 """The port imports neither jax nor the JAX package.
 
 A fresh interpreter with ``sys.modules['jax'] = None`` (so any
-``import jax`` raises) imports the port's modules and drives two LJ4
-steps of the ensemble.
+``import jax`` raises) imports every module of the port (walked with
+``pkgutil``), drives two LJ4 steps of the ensemble and a two-input work
+queue with a checkpoint.
 """
 import os
 import subprocess
@@ -15,25 +16,37 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CODE = """
-import sys
+import importlib, os, pkgutil, sys, tempfile
 sys.modules['jax'] = None
 import numpy as np
 import torch
 torch.set_num_threads(1)
 import sella_tpu_torch
-import sella_tpu_torch.interop
-import sella_tpu_torch.ops.jacobi_eigh
-import sella_tpu_torch.parallel.ensemble as ens
-from sella_tpu_torch import EnsembleConfig, LennardJones, run_ensemble
+mods = [m.name for m in pkgutil.walk_packages(sella_tpu_torch.__path__,
+                                              'sella_tpu_torch.')]
+for name in mods:
+    importlib.import_module(name)
+assert {'sella_tpu_torch.parallel.checkpoint',
+        'sella_tpu_torch.parallel.metrics'} <= set(mods), mods
+from sella_tpu_torch import (EnsembleConfig, LennardJones, run_ensemble,
+                             run_ensemble_queue, summarize)
 x0 = np.array([[0, 0, 0, 1, 0, 0, .5, .87, 0, .5, .29, .82]]) * 1.12
 st = run_ensemble(LennardJones(), torch.as_tensor(x0),
                   EnsembleConfig(natoms=4), max_steps=2)
 assert int(st.nsteps[0]) == 2, st.nsteps
+assert summarize(st).n_total == 1
+cfg = EnsembleConfig(natoms=4, order=0, eig=False, method='qn')
+with tempfile.TemporaryDirectory() as tmp:
+    res = run_ensemble_queue(LennardJones(), np.vstack([x0, x0 + 0.02]),
+                             cfg, batch=1, max_steps_per_search=30,
+                             refill_every=10, device='cpu',
+                             checkpoint_path=os.path.join(tmp, 'q.pt'))
+assert len(res) == 2 and all(r[3] for r in res), res
 bad = [m for m in sys.modules
        if (m == 'jax' or m.startswith(('jax.', 'jaxlib', 'sella_tpu.')) or
            m == 'sella_tpu') and sys.modules[m] is not None]
 assert not bad, bad
-print('NO_JAX_OK')
+print('NO_JAX_OK', len(mods))
 """
 
 
