@@ -32,12 +32,23 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
    (minimization and saddle) and as a ``"gt"`` inequality, 100 steps
    (cut from 200), held to the JAX package's converged counts;
 9. checkpoints on the card: a live queue state saved and loaded bit for
-   bit, and a queue resumed from its first cycle's checkpoint.
+   bit, and a queue resumed from its first cycle's checkpoint;
+10. the atom+cell tier: the bench's config 3 (bulk Cu EMT 2x2x2, 32
+    atoms + 9 cell DOF, 512 lanes, fmax 1e-3) held to BENCH_r04.json's
+    counts and the EMT lattice constant, with the prep eigh's share of a
+    step; then ``run_cell_ensemble(niggli=True)`` on skewed lattices and
+    ``run_cell_ensemble_queue`` on 128 inputs (cut from 256 for time),
+    64 lanes each;
+11. the precision split: ``F32Potential(EMT)`` against float64 EMT on
+    the card (agreement and the f64/f32 time ratio of the batched eval
+    and HVP), and the 453-DOF emt151 config in both precisions (cut to
+    a 60-step cap), the float32 run held to the float64 run's counts.
 
 The JAX package's numbers for phases 7 and 8 come from
 ``tools/jax_reference_counts.py`` (run on a CPU; the card's host has no
-JAX). The last two lines of standard output are the kernels' JSON record
-and ``{"ok": true, "device": {...}}``.
+JAX); phases 10-11 print the JAX package's TPU counts beside their own.
+The last three lines of standard output are the kernels' JSON record, the
+LJ4 summary and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -114,6 +125,29 @@ CONSTRAINT_LANES_ATOL = {"eq_min": 5, "gt_min": 5, "eq_saddle": 55}
 INERTIA_BAD_MAX = 0.01
 # the eigh headline (phase 5) runs at this batch, cut from 1024 for time
 EIGH_HEADLINE_BATCH = 256
+# the bench's atom+cell config (bench.py:1067-1130, BASELINE config 3) at
+# its full width: its device-independent counts from the JAX package's run
+# (BENCH_r04.json, "cell" block; 100% converged, every lane by step 40)
+CELL_BATCH = 512
+CELL_MAX_STEPS = 250
+BENCH_R04_CELL = {"mean_steps_converged": 34.8, "mean_force_calls": 35.8}
+CELL_COUNTS_RTOL = 0.05
+# the EMT equilibrium lattice constant the relaxed 2x2x2 supercells
+# recover (tests/test_ensemble_cell.py:56-62)
+CELL_LATTICE_A = 3.593
+# the two other atom+cell entry points, on the card (phase 10b)
+CELL_ENTRY_SIZE = {"niggli_batch": 64, "queue_batch": 64,
+                   "queue_total": 128}
+# emt151 (bench.py:249-290, 380-395; the bench runs 32 lanes, 120 steps)
+# in float64 and behind F32Potential (bench.py:422-427); the JAX
+# package's counts on the TPU (BENCH_r05.json), printed, not gated
+EMT151_SIZE = {"batch": 32, "max_steps": 60}
+BENCH_R05_EMT151 = {
+    "f64": {"mean_steps_converged": 32.1, "mean_matvecs": 32.3,
+            "mean_force_calls": 33.1},
+    "f32": {"mean_steps_converged": 31.8, "mean_matvecs": 32.3,
+            "mean_force_calls": 32.8}}
+F32_COUNTS_RTOL = 0.05
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and device memory
 PEAK_F32_FLOPS = 67e12
@@ -122,6 +156,20 @@ PEAK_BYTES_PER_S = 3.35e12
 
 def _phase(name, t0):
     print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def _sync_for(dev):
+    return (torch.cuda.synchronize if torch.device(dev).type == "cuda"
+            else (lambda: None))
 
 
 def headline_setup(batch, seed=0):
@@ -203,12 +251,7 @@ def phase_env():
     print(f"device: {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}, "
           f"capability {torch.cuda.get_device_capability(0)}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    print(smi, flush=True)
+    print(_card(), flush=True)
     t = time.perf_counter()
     je.build()
     print(f"jacobi_eigh build: {time.perf_counter() - t:.2f} s")
@@ -812,6 +855,393 @@ def run_checkpoint(dev="cuda:0", batch=64, total=256):
     return stats
 
 
+def cell_setup(batch, seed=0):
+    """The bench's atom+cell system (bench.py:1085-1096): bulk Cu EMT,
+    2x2x2 conventional supercell 3% over-expanded (32 atoms, 9 cell
+    DOF), positions rattled by 0.05 A and cell parameters drawn at
+    0.02, both from ``np.random.RandomState(seed)``."""
+    from sella_tpu_torch.potentials import EMT, fcc_bulk
+
+    atoms = fcc_bulk("Cu", 3.59 * 1.03, reps=(2, 2, 2))
+    nat = len(atoms)
+    rng = np.random.RandomState(seed)
+    x0 = np.stack([
+        (atoms.positions
+         + 0.05 * rng.normal(size=atoms.positions.shape)).ravel()
+        for _ in range(batch)
+    ])
+    s0 = 0.02 * rng.normal(size=(batch, 9))
+    return EMT(np.array([29] * nat), pbc=True), x0, s0, \
+        np.asarray(atoms.cell), nat
+
+
+def cell_config(nat):
+    """The bench's CellEnsembleConfig (bench.py:1098-1099)."""
+    from sella_tpu_torch import CellEnsembleConfig
+
+    return CellEnsembleConfig(natoms=nat, ncell=9, order=0, nproj=3,
+                              fmax=1e-3, delta0=0.1, absb="ns")
+
+
+def _cell_fmax_smax(pot, cfg, state, cell_mask=None):
+    """The tier's convergence criterion recomputed at the final geometry:
+    max per-atom projected force and max |dE/ds| per lane."""
+    from sella_tpu_torch.parallel.ensemble_cell import (
+        _batched_cell_eval, _const_free_basis, make_ext_energy_c0)
+
+    if cell_mask is None:
+        cell_mask = np.ones((3, 3), dtype=bool)
+    ext, _ = make_ext_energy_c0(pot, cfg, cell_mask)
+    _, g = _batched_cell_eval(ext)(state.z, state.cell0)
+    U = torch.as_tensor(_const_free_basis(cfg.natoms, cfg.ncell, cfg.nproj),
+                        device=g.device)
+    gp = (g @ U) @ U.T
+    nr3 = 3 * cfg.natoms
+    fmax = gp[:, :nr3].reshape(len(g), cfg.natoms, 3).norm(dim=2).amax(dim=1)
+    return fmax, g[:, nr3:].abs().amax(dim=1)
+
+
+def run_cell_headline(dev="cuda:0", batch=CELL_BATCH):
+    """The bench's atom+cell config (phase 10) through ``run_cell_ensemble``
+    at ``batch`` lanes, 10 steps a chunk; gates its converged share, its
+    counts against BENCH_r04.json, the convergence criterion at the final
+    geometry and the relaxed lattice. On the card, times one step's P-RFO
+    prep eigh against the whole step (CUDA events)."""
+    from sella_tpu_torch import cells_of, make_cell_step_fn, \
+        run_cell_ensemble
+    from sella_tpu_torch.ops.jacobi_eigh import jacobi_eigh_cuda
+    from sella_tpu_torch.parallel.ensemble import prfo_prepare_batched
+    from sella_tpu_torch.parallel.ensemble_cell import _const_free_basis
+
+    dev = torch.device(dev)
+    pot, x0, s0, cell0, nat = cell_setup(batch)
+    cfg = cell_config(nat)
+    pot = pot.to(dev)
+    sync = _sync_for(dev)
+    sync()
+    jacobi_eigh_cuda.launches = 0
+    t = time.perf_counter()
+    state = run_cell_ensemble(pot, x0, cfg, cell0, s0=s0,
+                              max_steps=CELL_MAX_STEPS, steps_per_call=10,
+                              device=dev)
+    sync()
+    wall = time.perf_counter() - t
+    launches = jacobi_eigh_cuda.launches
+
+    for name, tns in zip(state._fields, state):
+        if tns.device != dev:
+            raise AssertionError(f"cell state.{name} is on {tns.device}")
+        if tns.is_floating_point() and not bool(torch.isfinite(tns).all()):
+            raise AssertionError(f"cell state.{name} has non-finite values")
+    if tuple(state.z.shape) != (batch, cfg.dim):
+        raise AssertionError(f"cell state.z has shape {tuple(state.z.shape)}")
+    conv = state.converged
+    nconv = int(conv.sum())
+    steps_run = int(state.nsteps.max())
+    fmax, smax = _cell_fmax_smax(pot, cfg, state)
+    bad = conv & ~((fmax < cfg.fmax) & (smax < cfg.fmax))
+    if bool(bad.any()):
+        raise AssertionError(f"{int(bad.sum())} converged cell lanes fail "
+                             "the convergence criterion at their geometry")
+    cells = cells_of(state, cfg)[conv].cpu().numpy()
+    lat = np.linalg.norm(cells, axis=2) / 2.0       # 2x2x2 supercell
+    ortho = cells @ np.swapaxes(cells, 1, 2)
+    off = np.abs(ortho - ortho * np.eye(3)).max(axis=(1, 2))
+    stats = {
+        "batch": batch, "converged_frac": nconv / batch,
+        "steps_run": steps_run,
+        "mean_steps_converged": (float(state.nsteps[conv].double().mean())
+                                 if nconv else None),
+        "mean_force_calls": float(state.neval.double().mean()),
+        "wall_s": wall, "searches_per_s": nconv / wall,
+        "s_per_step": wall / max(steps_run, 1),
+        "lattice_max_dev": (float(np.abs(lat - CELL_LATTICE_A).max())
+                            if nconv else None),
+        "offdiag_CCt_max": float(off.max()) if nconv else None,
+        "jacobi_eigh_launches": launches,
+    }
+    if dev.type == "cuda":
+        # one step's calls on a live state (converged flags cleared, so
+        # every lane steps): the whole step against its prep eigh
+        step = make_cell_step_fn(pot, cfg)
+        live = state._replace(converged=torch.zeros_like(state.converged))
+        U = torch.as_tensor(_const_free_basis(nat, cfg.ncell, cfg.nproj),
+                            device=dev)
+        g_free = live.g @ U
+        Hproj = torch.einsum("ji,bjk,kl->bil", U, live.H, U)
+        step_ms = _cuda_ms(lambda: step(live), 3)
+        prep_ms = _cuda_ms(
+            lambda: prfo_prepare_batched(g_free, Hproj, cfg.order), 3)
+        stats.update(step_ms=step_ms, prep_eigh_ms=prep_ms,
+                     prep_eigh_share=prep_ms / step_ms, card=_card())
+    print(json.dumps(stats), flush=True)
+    if stats["converged_frac"] < CONV_FRAC_MIN:
+        raise AssertionError(f"cell converged_frac {stats['converged_frac']} "
+                             f"< {CONV_FRAC_MIN}")
+    for k, ref in BENCH_R04_CELL.items():
+        if abs(stats[k] - ref) > CELL_COUNTS_RTOL * ref:
+            raise AssertionError(f"cell {k} = {stats[k]} is more than "
+                                 f"{CELL_COUNTS_RTOL:.0%} from BENCH_r04's "
+                                 f"{ref}")
+    if not (stats["lattice_max_dev"] < 0.01
+            and stats["offdiag_CCt_max"] < 0.05):
+        raise AssertionError("a relaxed cell misses the EMT lattice: "
+                             f"{stats['lattice_max_dev']}, "
+                             f"{stats['offdiag_CCt_max']}")
+    return stats
+
+
+SKEW = np.array([[1, 0, 0], [1, 1, 0], [0, 0, 1]], dtype=float)
+
+
+def _angle_dev(cell):
+    """Largest deviation from 90 degrees between two rows of ``cell``."""
+    n = np.linalg.norm(cell, axis=1)
+    c = [cell[i] @ cell[j] / (n[i] * n[j])
+         for i, j in ((0, 1), (0, 2), (1, 2))]
+    return max(abs(np.degrees(np.arccos(np.clip(v, -1, 1))) - 90.0)
+               for v in c)
+
+
+def run_cell_entry_points(dev="cuda:0", niggli_batch=64, queue_batch=64,
+                          queue_total=128):
+    """Phase 10b: the atom+cell tier's two other entry points on the card.
+
+    ``run_cell_ensemble(niggli=True)`` on the skewed-lattice setup of
+    tests/test_cell_niggli_batched.py (periodic LJ, 108 atoms): half the
+    lanes start on the cubic cell, half on a 45-degree-skewed basis of
+    the same lattice; the skewed lanes must be rebased and converge to
+    the pristine lanes' enthalpy. Then ``run_cell_ensemble_queue``: the
+    LJ bulk of tests/test_ensemble_cell.py:142-169 with ``queue_total``
+    starts through ``queue_batch`` lanes, one converged result each."""
+    from sella_tpu_torch import CellEnsembleConfig, run_cell_ensemble, \
+        run_cell_ensemble_queue
+    from sella_tpu_torch.potentials import LennardJones, fcc_bulk
+
+    dev = torch.device(dev)
+    sync = _sync_for(dev)
+    atoms = fcc_bulk("Cu", 1.55, reps=(3, 3, 3))
+    cell = np.asarray(atoms.cell)
+    rng = np.random.RandomState(0)
+    x0 = np.stack([
+        (atoms.positions
+         + 0.01 * rng.normal(size=atoms.positions.shape)).ravel()
+        for _ in range(niggli_batch)
+    ])
+    half = niggli_batch // 2
+    cell0 = np.stack([cell] * half + [SKEW @ cell] * (niggli_batch - half))
+    cfg = CellEnsembleConfig(natoms=len(atoms), ncell=9, order=0, fmax=5e-3,
+                             delta0=0.1)
+    sync()
+    t = time.perf_counter()
+    st = run_cell_ensemble(LennardJones(pbc=True, rc=1.4), x0, cfg, cell0,
+                           max_steps=150, steps_per_call=5, niggli=True,
+                           device=dev)
+    sync()
+    t_niggli = time.perf_counter() - t
+    f = st.f.cpu().numpy()
+    c0 = st.cell0.cpu().numpy()
+    f_ref = float(np.median(f[:half]))
+    stats = {
+        "niggli_batch": niggli_batch, "niggli_wall_s": t_niggli,
+        "niggli_converged": int(st.converged.sum()),
+        "niggli_steps_run": int(st.nsteps.max()),
+        "skewed_rebased": int(sum(_angle_dev(c) < 5.0 for c in c0[half:])),
+        "skewed_f_rel_dev_max": float(np.abs(f[half:] - f_ref).max()
+                                      / abs(f_ref)),
+        "pristine_f_rel_dev_max": float(np.abs(f[:half] - f_ref).max()
+                                        / abs(f_ref)),
+    }
+
+    atoms = fcc_bulk("Cu", 1.55, reps=(2, 2, 2))
+    rng = np.random.RandomState(0)
+    xq = np.stack([
+        (atoms.positions
+         + 0.02 * rng.normal(size=atoms.positions.shape)).ravel()
+        for _ in range(queue_total)
+    ])
+    sq = 0.02 * rng.normal(size=(queue_total, 9))
+    cfgq = CellEnsembleConfig(natoms=len(atoms), ncell=9, order=0,
+                              fmax=5e-3, delta0=0.1)
+    sync()
+    t = time.perf_counter()
+    res = run_cell_ensemble_queue(LennardJones(pbc=True), xq, cfgq,
+                                  np.asarray(atoms.cell), queue_batch,
+                                  s0_all=sq, max_steps_per_search=200,
+                                  refill_every=10, device=dev)
+    sync()
+    t_queue = time.perf_counter() - t
+    fq = np.array([r["f"] for r in res])
+    stats.update({
+        "queue_batch": queue_batch, "queue_total": queue_total,
+        "queue_wall_s": t_queue, "queue_results": len(res),
+        "queue_converged": sum(r["converged"] for r in res),
+        "queue_mean_steps": float(np.mean([r["nsteps"] for r in res])),
+        "queue_searches_per_s": sum(r["converged"] for r in res) / t_queue,
+        "queue_f_rel_spread": float(np.std(fq) / abs(np.mean(fq))),
+    })
+    if dev.type == "cuda":
+        stats["card"] = _card()
+    print(json.dumps(stats), flush=True)
+    if not (stats["niggli_converged"] == niggli_batch
+            and stats["skewed_rebased"] == niggli_batch - half
+            and stats["skewed_f_rel_dev_max"] < 1e-6):
+        raise AssertionError("the Niggli run did not rebase and converge "
+                             "every skewed lane to the pristine enthalpy")
+    if not (stats["queue_results"] == queue_total
+            and stats["queue_converged"] == queue_total):
+        raise AssertionError("the cell queue did not return one converged "
+                             "result per input")
+    return stats
+
+
+def run_precision_split(dev="cuda:0", slab_lanes=1024,
+                        bulk_lanes=CELL_BATCH):
+    """Phase 11a: F32Potential(EMT) against float64 EMT on the card at the
+    headline slab (1024 lanes) and the phase-10 bulk (512 lanes): per-lane
+    energy, gradient and HVP within tests/test_pot_f32.py's tolerances,
+    and the batched eval and HVP timed in each precision (CUDA events)."""
+    from sella_tpu_torch.parallel.ensemble import _batched_eval, \
+        _batched_hvp_full
+    from sella_tpu_torch.potentials import F32Potential
+
+    dev = torch.device(dev)
+    timed = _cuda_ms if dev.type == "cuda" else (lambda fn, reps: None)
+    pot_s, x_s, cell_s, _ = headline_setup(slab_lanes)
+    pot_b, x_b, _, cell_b, _ = cell_setup(bulk_lanes)
+    out = {}
+    for name, pot, x_np, cell in (
+            (f"headline_slab_{slab_lanes}", pot_s, x_s, cell_s),
+            (f"cell_bulk_{bulk_lanes}", pot_b, x_b, cell_b)):
+        n = x_np.shape[1] // 3
+        v_np = np.random.RandomState(1).normal(size=x_np.shape)
+        v_np /= np.linalg.norm(v_np, axis=1, keepdims=True)
+        x = torch.as_tensor(x_np, device=dev)
+        v = torch.as_tensor(v_np, device=dev)
+        cell_t = torch.as_tensor(cell, device=dev)
+        p64 = pot.to(dev)
+        p32 = F32Potential(pot).to(dev)
+        res = {}
+        for tag, p in (("f64", p64), ("f32", p32)):
+            ev = _batched_eval(p, cell_t, 256)
+            hv = _batched_hvp_full(p, cell_t, 256)
+            f, g = ev(x)
+            h = hv(x, v)
+            res[tag] = (f, g, h, timed(lambda: ev(x), 5),
+                        timed(lambda: hv(x, v), 5))
+        f64, g64, h64, e64_ms, h64_ms = res["f64"]
+        f32, g32, h32, e32_ms, h32_ms = res["f32"]
+        if not (f32.dtype == g32.dtype == h32.dtype == torch.float64):
+            raise AssertionError("F32Potential left its float64 interface")
+        de = float((f32 - f64).abs().max())
+        dg = float((g32 - g64).abs().max())
+        dh = float(((h32 - h64).norm(dim=1)
+                    / h64.norm(dim=1).clamp(min=1.0)).max())
+        out[name] = {
+            "lanes": len(x_np), "natoms": n,
+            "energy_abs_diff_max": de, "energy_gate": 1e-5 * 15.0 * n,
+            "grad_abs_diff_max": dg, "grad_gate": 5e-5,
+            "hvp_rel_diff_max": dh, "hvp_gate": 2e-4,
+        }
+        if dev.type == "cuda":
+            out[name].update(
+                eval_ms_f64=e64_ms, eval_ms_f32=e32_ms,
+                eval_f64_over_f32=e64_ms / e32_ms,
+                hvp_ms_f64=h64_ms, hvp_ms_f32=h32_ms,
+                hvp_f64_over_f32=h64_ms / h32_ms, card=_card())
+        print(json.dumps({name: out[name]}), flush=True)
+        if not (de < 1e-5 * 15.0 * n and dg < 5e-5 and dh < 2e-4):
+            raise AssertionError(f"F32Potential on {name} misses "
+                                 "tests/test_pot_f32.py's tolerances")
+    return out
+
+
+def emt151_setup(batch):
+    """bench.py:249-290: Cu(111) 5x5x6 slab on the primitive surface cell
+    plus one adatom nudged off the fcc hollow, 151 atoms, 453 DOF;
+    ``batch`` starts jittered by 0.02 A from ``RandomState(0)``."""
+    from sella_tpu_torch.potentials import EMT, fcc111_primitive
+
+    a = 3.59
+    slab = fcc111_primitive("Cu", a, size=(5, 5, 6))
+    d = a / np.sqrt(2.0)
+    a1 = np.array([d, 0.0, 0.0])
+    a2 = np.array([d / 2.0, d * np.sqrt(3.0) / 2.0, 0.0])
+    top_z = slab.positions[:, 2].max()
+    top = slab.positions[np.abs(slab.positions[:, 2] - top_z) < 0.1]
+    base = top[np.lexsort((top[:, 1], top[:, 0]))][len(top) // 2]
+    ad = (base + (a1 + a2) / 3.0 + np.array([0.3, 0.1, 0.0])
+          + np.array([0.0, 0.0, a / np.sqrt(3.0)]))
+    pos0 = np.vstack([slab.positions, ad])
+    nat = len(pos0)
+    rng = np.random.RandomState(0)
+    x0 = np.stack([(pos0 + 0.02 * rng.normal(size=pos0.shape)).ravel()
+                   for _ in range(batch)])
+    return EMT(np.array([29] * nat), pbc=True), x0, \
+        np.asarray(slab.cell), nat
+
+
+def run_emt151_pair(dev="cuda:0", batch=32, max_steps=60):
+    """Phase 11b: the emt151 config (bench.py:380-395) in float64 and
+    behind F32Potential with the bench's pred_min (bench.py:422-427),
+    each through ``run_ensemble``. Gates: both converge, and the float32
+    run's counts stay within F32_COUNTS_RTOL of the float64 run's."""
+    from sella_tpu_torch import EnsembleConfig, run_ensemble
+    from sella_tpu_torch.potentials import F32Potential
+
+    dev = torch.device(dev)
+    pot, x0, cell, nat = emt151_setup(batch)
+    cell_t = torch.as_tensor(cell, device=dev)
+    cfg = EnsembleConfig(
+        natoms=nat, order=1, nproj=3, fmax=1e-3, gamma=0.3,
+        davidson_max=60, delta0=5e-3, diag_budget=max(batch // 8, 1),
+        eigh_f32=True, rs_maxiter=12, absb="ns",
+        eval_chunk=min(batch, 16), davidson_seed="pmode", prfo_eigh="eigh",
+    )
+    sync = _sync_for(dev)
+    out = {}
+    for tag in ("f64", "f32"):
+        p, c = pot, cfg
+        if tag == "f32":
+            p = F32Potential(pot)
+            c = cfg._replace(pred_min=3.0 * 1e-5 * 15.0 * nat)
+        sync()
+        t = time.perf_counter()
+        st = run_ensemble(p.to(dev), x0, c, max_steps=max_steps,
+                          cell=cell_t, device=dev)
+        sync()
+        wall = time.perf_counter() - t
+        conv = st.converged
+        nconv = int(conv.sum())
+        if not bool(torch.isfinite(st.x).all()):
+            raise AssertionError(f"emt151 {tag}: non-finite geometry")
+        out[tag] = {
+            "converged_frac": nconv / batch,
+            "steps_run": int(st.nsteps.max()),
+            "mean_steps_converged": (float(st.nsteps[conv].double().mean())
+                                     if nconv else None),
+            "mean_matvecs": float(st.nmatvec.double().mean()),
+            "mean_force_calls": float(st.neval.double().mean()),
+            "wall_s": wall, "searches_per_s": nconv / wall,
+        }
+        print(json.dumps({f"emt151_{tag}": out[tag],
+                          "bench_r05": BENCH_R05_EMT151[tag],
+                          "card": _card() if dev.type == "cuda" else None}),
+              flush=True)
+    for tag in ("f64", "f32"):
+        if out[tag]["converged_frac"] < CONV_FRAC_MIN:
+            raise AssertionError(f"emt151 {tag} converged_frac "
+                                 f"{out[tag]['converged_frac']} < "
+                                 f"{CONV_FRAC_MIN}")
+    for k in BENCH_R05_EMT151["f64"]:
+        ref = out["f64"][k]
+        if abs(out["f32"][k] - ref) > F32_COUNTS_RTOL * ref:
+            raise AssertionError(f"emt151 f32 {k} = {out['f32'][k]} is more "
+                                 f"than {F32_COUNTS_RTOL:.0%} from the "
+                                 f"float64 run's {ref}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -871,8 +1301,34 @@ def main():
     run_checkpoint()
     _phase("9 checkpoint on the card", t)
 
+    from sella_tpu_torch.ops.jacobi_eigh import jacobi_eigh_cuda
+
+    t = time.perf_counter()
+    cell = run_cell_headline()
+    print(json.dumps({"cell": {k: cell[k] for k in BENCH_R04_CELL},
+                      "bench_r04_cell": BENCH_R04_CELL}), flush=True)
+    jacobi_eigh_cuda.launches = 0
+    print(f"cut: phase 10b runs {CELL_ENTRY_SIZE}, not a queue of 256 "
+          "inputs", flush=True)
+    run_cell_entry_points(**CELL_ENTRY_SIZE)
+    cell_launches = cell["jacobi_eigh_launches"] + jacobi_eigh_cuda.launches
+    _phase("10 atom+cell tier", t)
+
+    t = time.perf_counter()
+    jacobi_eigh_cuda.launches = 0
+    run_precision_split()
+    print(f"cut: phase 11b runs emt151 at {EMT151_SIZE['batch']} lanes "
+          f"(the bench's batch) for at most {EMT151_SIZE['max_steps']} "
+          "steps, not 120", flush=True)
+    run_emt151_pair(**EMT151_SIZE)
+    split_launches = jacobi_eigh_cuda.launches
+    _phase("11 precision split", t)
+
+    # phases 10-11 run no hand-written kernel (the cell tier's prep and
+    # the emt151 config use torch.linalg.eigh, as the JAX package does)
     launches = {"4": jac["jacobi_eigh_launches"],
-                "6": served["jacobi_eigh_launches"]}
+                "6": served["jacobi_eigh_launches"],
+                "10": cell_launches, "11": split_launches}
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh",
         "route": "cuda",

@@ -4,7 +4,8 @@ Counterpart of ``sella_tpu/ops/linalg.py`` for the functions the batched
 Cartesian ensemble reaches: the eigh chokepoint :func:`batched_eigh`,
 the plain parallel-order Jacobi :func:`jacobi_eigh` (the reference the
 CUDA kernel in ``sella_tpu_torch/csrc/jacobi_eigh.cu`` is held against),
-and two small helpers.
+two small helpers, and the matrix exponential and logarithm that the
+atom+cell tier's cell chart differentiates through.
 """
 from __future__ import annotations
 
@@ -154,3 +155,54 @@ def inv3(A: torch.Tensor) -> torch.Tensor:
     c2 = torch.linalg.cross(r0, r1)
     det = torch.dot(r0, c0)
     return torch.stack([c0, c1, c2], dim=1) / det
+
+
+# ---------------------------------------------------------------------------
+# Matrix exponential / logarithm (cell parameterization substrate)
+# ---------------------------------------------------------------------------
+def expm(A: torch.Tensor, order: int = 12, squarings: int = 8) -> torch.Tensor:
+    """Differentiable matrix exponential: scaling and squaring + Taylor.
+
+    A literal port of ``sella_tpu.ops.linalg.expm``: fixed counts (Taylor
+    order 12, 8 squarings; ~1e-15 accurate for ``||A|| <~ 10``) in plain
+    tensor operations, so ``torch.func`` forward-over-reverse through it
+    is matmuls only, under ``vmap`` too, and the arithmetic is the JAX
+    package's."""
+    n = A.shape[-1]
+    X = A * 2.0 ** (-squarings)
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    term = eye
+    out = eye
+    for k in range(1, order + 1):
+        term = term @ X / k
+        out = out + term
+    for _ in range(squarings):
+        out = out @ out
+    return out
+
+
+def expm_frechet(A: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
+    """Directional (Fréchet) derivative of :func:`expm` at A along E."""
+    from torch.func import jvp
+
+    return jvp(expm, (A,), (E,))[1]
+
+
+def logm_host(F: np.ndarray) -> np.ndarray:
+    """Real matrix logarithm of a well-conditioned 3x3 (numpy, host).
+
+    The eigendecomposition closed form with a scipy fallback for
+    defective inputs, as ``sella_tpu.ops.linalg.logm_host``."""
+    import scipy.linalg as sla
+
+    F = np.asarray(F, dtype=np.float64)
+    lam, V = np.linalg.eig(F)
+    if np.linalg.cond(V) > 1e10:
+        return np.real(sla.logm(F))
+    return np.real(V @ np.diag(np.log(lam)) @ np.linalg.inv(V))
+
+
+def det3(A: torch.Tensor) -> torch.Tensor:
+    """Determinant of a 3x3 by the triple product; differentiable to any
+    order under ``torch.func`` (``torch.linalg.det`` is LU-based)."""
+    return torch.dot(A[0], torch.linalg.cross(A[1], A[2]))

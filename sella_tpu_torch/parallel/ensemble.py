@@ -617,7 +617,9 @@ def restricted_step_batched(
 ):
     """Map per-search trust radii to steps: masked Newton/bisection on
     ||s(alpha)|| = delta (``restricted_step.py:78-120``), with a fixed
-    count of ``cfg.rs_maxiter`` iterations. Returns (s_full, smag)."""
+    count of ``cfg.rs_maxiter`` iterations (off the card the loop stops
+    once every lane is done, with the same result). Returns
+    (s_full, smag)."""
     stepper = prfo_step_batched if cfg.method == "prfo" else qn_step_batched
     Bsz = g_free.shape[0]
     dtype, dev = g_free.dtype, g_free.device
@@ -646,7 +648,14 @@ def restricted_step_batched(
     lower = torch.full((Bsz,), amin, dtype=dtype, device=dev)
     upper = torch.full((Bsz,), amax, dtype=dtype, device=dev)
     done = done0
+    # Once every lane is done, the remaining iterations leave alpha, and
+    # so the result, unchanged. Off the card the test costs nothing, so
+    # the loop stops there; on the card it would cost a host sync per
+    # iteration, and the fixed count stays, as in the JAX package.
+    stop_early = dev.type != "cuda"
     for _ in range(cfg.rs_maxiter):
+        if stop_early and bool(done.all()):
+            break
         _, val, dval = eval_at(alpha)
         err = val - delta
         done = done | (torch.abs(err) <= cfg.rs_tol)

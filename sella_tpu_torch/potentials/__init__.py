@@ -1,10 +1,12 @@
 from .base import ASECalculatorWrapper, Potential
 from .emt import EMT, fcc111_primitive, fcc111_slab, fcc_bulk
+from .mixed import F32Potential
 from .pair import LennardJones, MorsePotential
 
 __all__ = [
     "EMT",
     "ASECalculatorWrapper",
+    "F32Potential",
     "Potential",
     "LennardJones",
     "MorsePotential",

@@ -55,13 +55,49 @@ class Potential(nn.Module):
     def hessian(self, x: torch.Tensor, cell: torch.Tensor) -> torch.Tensor:
         return hessian(self.energy)(x, cell)
 
+    def energy_and_strain_grad(
+        self, x: torch.Tensor, cell: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Energy and dE/d(strain), the autodiff route to the virial
+        stress: an infinitesimal affine deformation ``F = I + eps`` of
+        positions AND cell, differentiated at ``eps = 0``. Stress is
+        ``sym(dE/deps) / volume`` (ASE convention, eV/A^3)."""
+        def deformed(eps):
+            F = torch.eye(3, dtype=cell.dtype, device=cell.device) + eps
+            pos = x.reshape(-1, 3) @ F.T
+            return self.energy(pos.reshape(-1), cell @ F.T)
+
+        d, e = grad_and_value(deformed)(
+            torch.zeros((3, 3), dtype=cell.dtype, device=cell.device))
+        return e, d
+
     # -- host convenience (ASE-calculator-like surface) ---------------------
+    def _host_device(self) -> torch.device:
+        return next(iter(self.buffers()), torch.empty(0)).device
+
     def energy_and_forces(self, atoms) -> Tuple[float, np.ndarray]:
-        dev = next(iter(self.buffers()), torch.empty(0)).device
+        dev = self._host_device()
         x = torch.as_tensor(atoms.positions.ravel(), device=dev)
         cell = torch.as_tensor(atoms.cell, device=dev)
         f, g = self.energy_and_grad(x, cell)
         return float(f), -g.detach().cpu().numpy().reshape(-1, 3)
+
+    def energy_and_stress(self, atoms) -> Tuple[float, np.ndarray]:
+        """Energy and Voigt stress [xx, yy, zz, yz, xz, xy] in eV/A^3."""
+        dev = self._host_device()
+        cell = np.asarray(atoms.cell, dtype=np.float64)
+        vol = abs(np.linalg.det(cell))
+        if vol <= 0.0:
+            raise ValueError("stress requires a full-rank cell")
+        x = torch.as_tensor(np.asarray(atoms.positions,
+                                       dtype=np.float64).ravel(), device=dev)
+        e, d = self.energy_and_strain_grad(x, torch.as_tensor(cell,
+                                                              device=dev))
+        d = d.detach().cpu().numpy()
+        sig = 0.5 * (d + d.T) / vol
+        voigt = np.array([sig[0, 0], sig[1, 1], sig[2, 2],
+                          sig[1, 2], sig[0, 2], sig[0, 1]])
+        return float(e), voigt
 
 
 def displacements(x: torch.Tensor, cell: torch.Tensor, pbc: bool):

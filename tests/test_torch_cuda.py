@@ -1,6 +1,7 @@
 """GPU tests of the port: the CUDA Jacobi kernel against its plain
-version, and one ensemble step on the card against the same step on the
-CPU. They skip without a CUDA device.
+version, one ensemble step (Cartesian and atom+cell) on the card against
+the same step on the CPU, and ``F32Potential`` on the card. They skip
+without a CUDA device.
 
 This file imports neither jax nor the JAX package, so it runs on a GPU
 host without them:
@@ -273,3 +274,75 @@ def test_checkpoint_saved_on_the_card_loads_to_the_card(cuda, tmp_path):
     gen2.set_state(retry["rng_state"])
     assert torch.equal(torch.randn(8, generator=gen, device=cuda),
                        torch.randn(8, generator=gen2, device=cuda))
+
+
+def test_f32_potential_on_the_card(cuda):
+    """F32Potential moves with ``.to()``: on the card its energy, gradient
+    and HVP are float64 at the interface, agree with the same float32
+    evaluation on the CPU to float32 rounding, and with float64 EMT to
+    the gates of tests/test_pot_f32.py."""
+    from sella_tpu_torch.potentials import F32Potential, fcc_bulk
+
+    atoms = fcc_bulk("Cu", 3.59, reps=(2, 2, 2))
+    n = len(atoms.positions)
+    rng = np.random.RandomState(0)
+    x = torch.as_tensor((atoms.positions
+                         + 0.05 * rng.normal(size=(n, 3))).ravel())
+    v = torch.as_tensor(rng.normal(size=3 * n))
+    cell = torch.as_tensor(atoms.cell)
+    pot64 = EMT(np.array([29] * n), pbc=True)
+    out = {}
+    for dev in ("cpu", cuda):
+        p32 = F32Potential(pot64).to(dev)
+        xd, vd, cd = x.to(dev), v.to(dev), cell.to(dev)
+        e, g = p32.energy_and_grad(xd, cd)
+        h = p32.hvp(xd, vd, cd)
+        assert e.dtype == g.dtype == h.dtype == torch.float64
+        assert g.device.type == torch.device(dev).type
+        out[str(dev)] = [t.cpu() for t in (e, g, h)]
+    # moving the wrapper leaves the wrapped potential where it was
+    assert pot64.E0.device.type == "cpu"
+    cpu, card = out["cpu"], out[str(cuda)]
+    e64, g64 = pot64.energy_and_grad(x, cell)
+    h64 = pot64.hvp(x, v, cell)
+    assert abs(float(card[0] - e64)) < 1e-5 * 15.0 * n
+    assert float((card[1] - g64).abs().max()) < 5e-5
+    assert float((card[2] - h64).norm()) < 2e-4 * max(float(h64.norm()), 1.0)
+    for a, b in zip(card[1:], cpu[1:]):
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-5
+
+
+def test_cell_step_card_matches_cpu(cuda):
+    """Two steps of the bench's atom+cell config (bulk Cu EMT, 32 atoms +
+    9 cell DOF) on the CPU, then one more from that state on each device
+    (float64 LAPACK vs cuSOLVER); a numpy x0 lands on the GPU."""
+    import sella_tpu_torch.parallel.ensemble_cell as C
+    from sella_tpu_torch.potentials import fcc_bulk
+
+    atoms = fcc_bulk("Cu", 3.59 * 1.03, reps=(2, 2, 2))
+    nat = len(atoms)
+    rng = np.random.RandomState(0)
+    x0 = np.stack([(atoms.positions
+                    + 0.05 * rng.normal(size=atoms.positions.shape)).ravel()
+                   for _ in range(4)])
+    s0 = 0.02 * rng.normal(size=(4, 9))
+    cfg = C.CellEnsembleConfig(natoms=nat, ncell=9, order=0, nproj=3,
+                               fmax=1e-3, delta0=0.1, absb="ns")
+    pot = EMT(np.array([29] * nat), pbc=True)
+    step = C.make_cell_step_fn(pot, cfg)
+    st = C.init_cell_state(pot, x0, cfg, np.asarray(atoms.cell), s0=s0,
+                           device="cpu")
+    for _ in range(2):
+        st = step(st)
+    out_cpu = step(st)
+    st_g = C.CellSearchState(*(t.to(cuda) for t in st))
+    out_gpu = C.make_cell_step_fn(pot.to(cuda), cfg)(st_g)
+    torch.cuda.synchronize()
+    for f in ("converged", "nsteps", "neval", "nmatvec"):
+        assert torch.equal(getattr(out_gpu, f).cpu(), getattr(out_cpu, f)), f
+    for f in ("z", "f", "g", "H", "delta"):
+        a, b = getattr(out_gpu, f).cpu(), getattr(out_cpu, f)
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-9, f
+    placed = C.init_cell_state(pot.to(cuda), x0, cfg,
+                               np.asarray(atoms.cell), s0=s0)
+    assert all(t.device.type == "cuda" for t in placed)

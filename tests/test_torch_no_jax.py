@@ -2,8 +2,9 @@
 
 A fresh interpreter with ``sys.modules['jax'] = None`` (so any
 ``import jax`` raises) imports every module of the port (walked with
-``pkgutil``), drives two LJ4 steps of the ensemble and a two-input work
-queue with a checkpoint.
+``pkgutil``), drives two LJ4 steps of the ensemble, a two-input work
+queue with a checkpoint, two steps of the atom+cell tier on periodic LJ
+and one ``F32Potential`` gradient.
 """
 import os
 import subprocess
@@ -27,7 +28,10 @@ mods = [m.name for m in pkgutil.walk_packages(sella_tpu_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 assert {'sella_tpu_torch.parallel.checkpoint',
-        'sella_tpu_torch.parallel.metrics'} <= set(mods), mods
+        'sella_tpu_torch.parallel.metrics',
+        'sella_tpu_torch.parallel.ensemble_cell',
+        'sella_tpu_torch.potentials.mixed', 'sella_tpu_torch.pes.cell',
+        'sella_tpu_torch.utils.lattice'} <= set(mods), mods
 from sella_tpu_torch import (EnsembleConfig, LennardJones, run_ensemble,
                              run_ensemble_queue, summarize)
 x0 = np.array([[0, 0, 0, 1, 0, 0, .5, .87, 0, .5, .29, .82]]) * 1.12
@@ -42,6 +46,19 @@ with tempfile.TemporaryDirectory() as tmp:
                              refill_every=10, device='cpu',
                              checkpoint_path=os.path.join(tmp, 'q.pt'))
 assert len(res) == 2 and all(r[3] for r in res), res
+from sella_tpu_torch import (CellEnsembleConfig, F32Potential,
+                             run_cell_ensemble)
+from sella_tpu_torch.potentials import fcc_bulk
+atoms = fcc_bulk('Cu', 1.55, reps=(2, 2, 2))
+xc = atoms.positions.reshape(1, -1) + 0.02
+cs = run_cell_ensemble(LennardJones(pbc=True), torch.as_tensor(xc),
+                       CellEnsembleConfig(natoms=32, ncell=9),
+                       atoms.cell, max_steps=2)
+assert int(cs.nsteps[0]) == 2 and bool(torch.isfinite(cs.z).all())
+g32 = F32Potential(LennardJones()).grad(torch.as_tensor(x0[0]),
+                                        torch.zeros((3, 3),
+                                                    dtype=torch.float64))
+assert g32.dtype == torch.float64 and bool(torch.isfinite(g32).all())
 bad = [m for m in sys.modules
        if (m == 'jax' or m.startswith(('jax.', 'jaxlib', 'sella_tpu.')) or
            m == 'sella_tpu') and sys.modules[m] is not None]
