@@ -20,8 +20,9 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
    lanes, fmax 1e-3) with ``prfo_eigh="jacobi"``, counting kernel launches;
 5. the same headline with the benchmark's own ``prfo_eigh="eigh"``, at
    256 lanes (cut for time);
-6. the served EMT headline: 4096 starts through a 1024-lane work queue
-   (``run_ensemble_queue``, fmax 0.02) with ``prfo_eigh="jacobi"``;
+6. the served EMT headline: 2048 starts (cut from 4096 for time) through
+   a 1024-lane work queue (``run_ensemble_queue``, fmax 0.02) with
+   ``prfo_eigh="jacobi"``;
 7. the LJ4 composite queue: a 1024-lane fast phase with retries and a
    drain handoff, then a 128-lane tail, with the stagnation/dissociation
    restarts and the ``conv_inertia`` gate, and an inertia census of the
@@ -42,11 +43,20 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
 11. the precision split: ``F32Potential(EMT)`` against float64 EMT on
     the card (agreement and the f64/f32 time ratio of the batched eval
     and HVP), and the 453-DOF emt151 config in both precisions (cut to
-    a 60-step cap), the float32 run held to the float64 run's counts.
+    a 60-step cap), the float32 run held to the float64 run's counts;
+12. the internal-coordinate tier: (a) the bench's Morse Xe4 config at
+    1024 lanes and 40 steps with the chord back-transform, with the
+    Gram eigh's, the Newton back-transform's and Davidson's shares of
+    the step; (b) the ``"robust"`` float64 eigh of its 1024 Gram
+    matrices (zero cluster of multiplicity 5); (c) the repave of
+    near-linear lanes at 256 lanes and the dummy-atom and fixed-bond
+    configs at 1024 lanes; (d) the served internal queue with the
+    Cartesian spill, a checkpoint and a resume. 12a, 12c and 12d are
+    held to the JAX package's runs at the same sizes.
 
-The JAX package's numbers for phases 7 and 8 come from
+The JAX package's numbers for phases 7, 8 and 12 come from
 ``tools/jax_reference_counts.py`` (run on a CPU; the card's host has no
-JAX); phases 10-11 print the JAX package's TPU counts beside their own.
+JAX); phases 10-12 print the JAX package's TPU figures beside their own.
 The last three lines of standard output are the kernels' JSON record, the
 LJ4 summary and ``{"ok": true, "device": {...}}``.
 """
@@ -125,6 +135,9 @@ CONSTRAINT_LANES_ATOL = {"eq_min": 5, "gt_min": 5, "eq_saddle": 55}
 INERTIA_BAD_MAX = 0.01
 # the eigh headline (phase 5) runs at this batch, cut from 1024 for time
 EIGH_HEADLINE_BATCH = 256
+# the served EMT headline (phase 6) streams this many starts, cut from the
+# bench's 4096 so that phase 12 fits the script's time
+SERVED_TOTAL = 2048
 # the bench's atom+cell config (bench.py:1067-1130, BASELINE config 3) at
 # its full width: its device-independent counts from the JAX package's run
 # (BENCH_r04.json, "cell" block; 100% converged, every lane by step 40)
@@ -1242,6 +1255,428 @@ def run_emt151_pair(dev="cuda:0", batch=32, max_steps=60):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the internal-coordinate tier
+# ---------------------------------------------------------------------------
+# 12a: the bench's internal config (bench.py:552-640, 1327-1337; BASELINE
+# config 2) at its full width and the bench block's 40 steps, not cut
+INTERNAL_SIZE = {"batch": 1024, "max_steps": 40}
+# 12c: the repave config of tests/test_repave.py:210-242 at 256 lanes,
+# and the dummy-atom and fixed-bond configs of
+# tests/test_ensemble_internal.py:125-228 at 1024 lanes
+INT_REPAVE_SIZE = {"batch": 256, "max_steps": 150}
+INT_CONS_SIZE = {"batch": 1024, "max_steps": 200}
+# 12d: the served queue on 12a's config, inputs 4x the lanes
+INT_QUEUE_SIZE = {"batch": 128, "total": 512, "max_steps_per_search": 60,
+                  "refill_every": 5}
+INT_COUNTS = ("mean_steps_converged", "mean_matvecs", "mean_force_calls")
+INT_COUNTS_RTOL = 0.05
+INT_CONV_ATOL = 0.04
+# converged lanes the card may differ from the JAX package by on the
+# minimizations of 12c (no random draw; float64 on the card vs LAPACK on
+# the CPU can tip a lane that converges at the last step)
+INT_CONS_LANES_ATOL = 5
+# the largest constraint error at the final geometries may be the larger
+# of the JAX tests' tolerance (the dummy's bond and angle, the fixed bond:
+# tests/test_ensemble_internal.py:165-171, 215) and twice the JAX
+# package's own largest error at the same size (a lane can converge in
+# force before its Newton back-transform pins the bond to 1e-4)
+INT_CONS_TOL = {"dummy": 1e-8, "fixed_bond": 1e-4}
+# the JAX package on the 12a, 12c and 12d configurations at the sizes
+# above, computed on a CPU (tools/jax_reference_counts.py); a run at other
+# sizes raises
+JAX_INTERNAL_REF = {
+    "headline": {"size": {"batch": 1024, "max_steps": 40},
+                 "converged_frac": 0.90625,
+                 "mean_steps_converged": 25.148706896551722,
+                 "mean_matvecs": 34.4287109375,
+                 "mean_force_calls": 27.541015625},
+    "dummy": {"size": {"batch": 1024, "max_steps": 200},
+              "converged": 1024, "constraint_err": 9.591571981104607e-11},
+    "fixed_bond": {"size": {"batch": 1024, "max_steps": 200},
+                   "converged": 1024,
+                   "constraint_err": 0.000598340508966011},
+    "queue": {"size": {"batch": 128, "total": 512,
+                       "max_steps_per_search": 60, "refill_every": 5},
+              "converged_frac": 0.998046875,
+              "mean_steps_converged": 27.53033268101761,
+              "mean_matvecs": 36.296875,
+              "mean_force_calls": 28.775390625}}
+# the JAX package's figures on a TPU v5 lite (bench.py:134-142, 165-176):
+# printed beside 12a, not compared, and not the port's goals
+TPU_INTERNAL = {"s_per_step": 6.35, "searches_per_s": 3.68,
+                "converged_frac": 0.912, "steps": 40,
+                "pre_chord_150_steps": {"converged_frac": 0.988,
+                                        "mean_steps_converged": 30.6,
+                                        "mean_matvecs": 40.3}}
+
+
+def xe4_setup(batch, seed=0):
+    """The bench's Morse Xe4 system (bench.py:580-597): eps = 226.9 kB,
+    r0 = 4.73, rho0 = 1.099 r0, ``pos0`` from RandomState(4) at scale 3,
+    its redundant-internal topology (nint = 11), and ``batch`` starts
+    ``pos0 + 0.3 N(0, 1)`` from RandomState(seed)."""
+    from sella_tpu_torch import Atoms, Internals, MorsePotential
+    from sella_tpu_torch.utils.units import kB
+
+    r0 = 4.73
+    pot = MorsePotential(epsilon=226.9 * kB, r0=r0, rho0=r0 * 1.099)
+    pos0 = np.random.RandomState(4).normal(size=(4, 3), scale=3.0)
+    ints = Internals(Atoms(["Xe"] * 4, pos0))
+    ints.find_all_bonds()
+    ints.find_all_angles()
+    ints.find_all_dihedrals()
+    x0 = (pos0[None] + 0.3 * np.random.RandomState(seed).normal(
+        size=(batch, 4, 3))).reshape(batch, 12)
+    return pot, ints, x0
+
+
+def xe4_config(ints):
+    """The bench block's InternalEnsembleConfig (bench.py:604-617)."""
+    from sella_tpu_torch import InternalEnsembleConfig
+
+    return InternalEnsembleConfig(natoms=4, nint=ints.nint, order=1,
+                                  fmax=1e-3, gamma=1e-3, restart_after=60,
+                                  absb="eigh", newton_chord=True)
+
+
+def int_stats(nsteps, nmatvec, neval, conv):
+    """The internal tier's counts: steps over converged searches, matvecs
+    and force calls over all searches (bench.py:648-660)."""
+    nsteps, nmatvec, neval = (np.asarray(a, dtype=np.float64)
+                              for a in (nsteps, nmatvec, neval))
+    conv = np.asarray(conv, dtype=bool)
+    return {"converged_frac": float(conv.mean()),
+            "mean_steps_converged": (float(nsteps[conv].mean())
+                                     if conv.any() else None),
+            "mean_matvecs": float(nmatvec.mean()),
+            "mean_force_calls": float(neval.mean())}
+
+
+def _hold_to_jax(name, stats, size, keys=INT_COUNTS):
+    """Raise unless the JAX reference of ``name`` was computed at
+    ``size`` and ``stats`` meet it: converged share within INT_CONV_ATOL,
+    counts within INT_COUNTS_RTOL."""
+    if JAX_INTERNAL_REF is None or JAX_INTERNAL_REF[name]["size"] != size:
+        raise AssertionError(f"no JAX reference for {name} at {size}; rerun "
+                             "tools/jax_reference_counts.py")
+    ref = JAX_INTERNAL_REF[name]
+    if abs(stats["converged_frac"] - ref["converged_frac"]) > INT_CONV_ATOL:
+        raise AssertionError(f"{name} converged_frac "
+                             f"{stats['converged_frac']} vs JAX "
+                             f"{ref['converged_frac']}")
+    for k in keys:
+        if abs(stats[k] - ref[k]) > INT_COUNTS_RTOL * ref[k]:
+            raise AssertionError(f"{name} {k} = {stats[k]} is more than "
+                                 f"{INT_COUNTS_RTOL:.0%} from JAX's {ref[k]}")
+
+
+def run_internal_headline(dev="cuda:0", batch=INTERNAL_SIZE["batch"],
+                          max_steps=INTERNAL_SIZE["max_steps"]):
+    """12a: the bench's internal config, ``max_steps`` steps (stopping
+    early once every lane converged), with the shares of the step in the
+    Gram eigh, the Newton back-transform and Davidson (CUDA events)."""
+    import sella_tpu_torch.parallel.ensemble_internal as TE
+
+    dev = torch.device(dev)
+    pot, ints, x0 = xe4_setup(batch)
+    cfg = xe4_config(ints)
+    pot = pot.to(dev)
+    sync = _sync_for(dev)
+    step = TE.make_internal_step_fn(pot, ints, cfg)
+    state = TE.init_internal_state(pot, ints, x0, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    TE.SPANS = {} if dev.type == "cuda" else None
+    sync()
+    t = time.perf_counter()
+    steps = 0
+    try:
+        for _ in range(max_steps):
+            state = step(state, gen)
+            steps += 1
+            if bool(state.converged.all()):
+                break
+        sync()
+        wall = time.perf_counter() - t
+        spans = TE.span_ms(TE.SPANS) if TE.SPANS is not None else {}
+    finally:
+        TE.SPANS = None
+    for name, tns in zip(state._fields, state):
+        if tns.device != dev:
+            raise AssertionError(f"internal state.{name} is on {tns.device}")
+        if tns.is_floating_point() and not bool(
+                torch.isfinite(tns).all()):
+            raise AssertionError(f"internal state.{name} is not finite")
+    stats = int_stats(state.nsteps.cpu(), state.nmatvec.cpu(),
+                      state.neval.cpu(), state.converged.cpu())
+    nconv = int(state.converged.sum())
+    stats.update(batch=batch, steps_run=steps, wall_s=wall,
+                 s_per_step=wall / max(steps, 1),
+                 searches_per_s=nconv / wall,
+                 span_ms=spans,
+                 span_share={k: v / (1e3 * wall) for k, v in spans.items()},
+                 tpu_figures=TPU_INTERNAL)
+    if dev.type == "cuda":
+        stats["card"] = _card()
+    print(json.dumps(stats), flush=True)
+    _hold_to_jax("headline", stats, {"batch": batch, "max_steps": max_steps})
+    return stats
+
+
+def run_robust_gram(dev="cuda:0", batch=INTERNAL_SIZE["batch"]):
+    """12b: ``batched_eigh(G, "robust")`` of the 1024 Gram matrices B B^T
+    of 12a's start geometries (zero cluster of multiplicity
+    nint - nred = 5): finite eigenpairs, relative residual and
+    orthonormality within 1e-12 (tests/test_eigh_refined.py:66-86), the
+    eigenvalues within 1e-12 of LAPACK's on the host, and exactly 5
+    eigenvalues below 1e-10 of the largest in every lane."""
+    from sella_tpu_torch.ops.linalg import batched_eigh
+
+    dev = torch.device(dev)
+    _, ints, x0 = xe4_setup(batch)
+    B = ints._get_engine()._jac_impl(
+        torch.as_tensor(x0, device=dev).reshape(batch, 4, 3),
+        torch.zeros((3, 3), dtype=torch.float64, device=dev))
+    G = B @ B.transpose(1, 2)
+    lams, V = batched_eigh(G, "robust")
+    scale = lams[:, -1:].abs()
+    eye = torch.eye(G.shape[1], dtype=G.dtype, device=dev)
+    ref = np.linalg.eigvalsh(G.cpu().numpy())
+    stats = {
+        "batch": batch, "n": G.shape[1],
+        "finite": bool(torch.isfinite(lams).all()
+                       and torch.isfinite(V).all()),
+        "residual": float(((G @ V - V * lams[:, None, :]).abs().amax((1, 2))
+                           / scale[:, 0]).max()),
+        "orthonormality": float((V.transpose(1, 2) @ V - eye).abs().max()),
+        "lam_vs_host": float((np.abs(lams.cpu().numpy() - ref)
+                              / np.abs(ref[:, -1:])).max()),
+        "zero_counts": sorted(set(
+            (lams < 1e-10 * scale).sum(1).cpu().tolist())),
+    }
+    if dev.type == "cuda":
+        stats["eigh_ms"] = _cuda_ms(lambda: batched_eigh(G, "robust"), 5)
+    print(json.dumps(stats), flush=True)
+    if not (stats["finite"] and stats["residual"] <= 1e-12
+            and stats["orthonormality"] <= 1e-12
+            and stats["lam_vs_host"] <= 1e-12
+            and stats["zero_counts"] == [5]):
+        raise AssertionError(f"robust Gram eigh fails its gates: {stats}")
+    return stats
+
+
+def _repave_lanes_x0(batch):
+    """tests/test_repave.py:210-242 at ``batch`` lanes: perturbed LJ
+    tetrahedra (RandomState(0), 0.05) alternating with the 179.8-degree
+    geometry whose angle lies in the 0.5-degree singular window."""
+    r0 = 2.0 ** (1.0 / 6.0)
+    tet = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0],
+                    [0.5, np.sqrt(3.0) / 2.0, 0.0],
+                    [0.5, np.sqrt(3.0) / 6.0, np.sqrt(2.0 / 3.0)]]) * r0
+    th = np.radians(0.2)
+    b = np.array([r0, 0.0, 0.0])
+    lin = np.stack([np.zeros(3), b,
+                    b + r0 * np.array([np.cos(th), np.sin(th), 0.0]),
+                    np.array([r0, 0.75 * r0, 0.6 * r0])])
+    rng = np.random.RandomState(0)
+    lanes = [lin.ravel() if i % 2 else
+             tet.ravel() + 0.05 * rng.normal(size=12) for i in range(batch)]
+    return tet, np.stack(lanes)
+
+
+def _cons_setups(batch):
+    """The dummy-atom and fixed-bond configs of
+    tests/test_ensemble_internal.py:125-228 (order 0, delta0 0.05) at
+    ``batch`` lanes: (name, potential, ints, x0, config kwargs)."""
+    from sella_tpu_torch import Atoms, Internals, MorsePotential
+    from sella_tpu_torch.coords import DuplicateInternalError
+    from sella_tpu_torch.utils.units import kB
+
+    r0 = 4.73
+    out = []
+    lin = np.array([[0.0, 0, 0], [r0, 0, 0], [2 * r0, 0, 0]])
+    ints = Internals(Atoms(["Xe"] * 3, lin))
+    ints.find_all_bonds()
+    ints.find_all_angles()
+    ints.find_all_dihedrals()
+    x0 = (lin[None] + 0.2 * np.random.RandomState(0).normal(
+        size=(batch, 3, 3))).reshape(batch, 9)
+    out.append(("dummy", ints, x0, dict(natoms=3, ndummies=1, ncons=2)))
+    tet = np.array([[0, 0, 0], [1, 0, 0], [0.5, np.sqrt(3) / 2, 0],
+                    [0.5, np.sqrt(3) / 6, np.sqrt(2.0 / 3)]]) * r0
+    ints = Internals(Atoms(["Xe"] * 4, tet))
+    ints.find_all_bonds()
+    ints.find_all_angles()
+    ints.find_all_dihedrals()
+    try:
+        ints.add_bond((0, 1))
+    except DuplicateInternalError:
+        pass
+    ints.cons.fix_bond((0, 1), target=1.15 * r0)
+    x0 = (tet[None] + 0.15 * np.random.RandomState(1).normal(
+        size=(batch, 4, 3))).reshape(batch, 12)
+    out.append(("fixed_bond", ints, x0, dict(natoms=4, ncons=1)))
+    pot = MorsePotential(epsilon=226.9 * kB, r0=r0, rho0=r0 * 1.099)
+    return pot, out
+
+
+def constraint_error(name, x):
+    """The largest constraint error over the lanes ``x`` (B, d) of the
+    ``"dummy"`` config (the dummy's bond to 1 and its right angle) or the
+    ``"fixed_bond"`` config (bond 0-1 at 1.15 r0)."""
+    if name == "dummy":
+        p = x.reshape(len(x), 4, 3)
+        dvec = p[:, 3] - p[:, 1]
+        return float(max(
+            np.abs(np.linalg.norm(dvec, axis=1) - 1.0).max(),
+            np.abs(np.einsum("bi,bi->b", p[:, 0] - p[:, 1], dvec)
+                   / np.linalg.norm(p[:, 0] - p[:, 1], axis=1)).max()))
+    return float(np.abs(np.linalg.norm(x[:, 3:6] - x[:, 0:3], axis=1)
+                        - 1.15 * 4.73).max())
+
+
+def run_internal_repave_and_constraints(dev="cuda:0",
+                                        repave_batch=INT_REPAVE_SIZE["batch"],
+                                        cons_batch=INT_CONS_SIZE["batch"]):
+    """12c: ``run_internal_ensemble(repave=True)`` on the repave config
+    (every lane converges, every near-linear lane is repaved), then the
+    dummy-atom and fixed-bond configs held to the JAX package's converged
+    counts, their constraints checked at the final geometries."""
+    from sella_tpu_torch import (Atoms, InternalEnsembleConfig, Internals,
+                                 LennardJones, run_internal_ensemble)
+
+    dev = torch.device(dev)
+    tet, x0 = _repave_lanes_x0(repave_batch)
+    ints = Internals(Atoms(["He"] * 4, tet))
+    ints.find_all_bonds()
+    ints.find_all_angles()
+    ints.find_all_dihedrals()
+    cfg = InternalEnsembleConfig(natoms=4, nint=ints.nint, order=0,
+                                 fmax=1e-3, gamma=0.1, eig=False)
+    t = time.perf_counter()
+    st, ints2 = run_internal_ensemble(
+        LennardJones().to(dev), ints, x0, cfg, repave=True, device=dev,
+        max_steps=INT_REPAVE_SIZE["max_steps"])
+    wall = time.perf_counter() - t
+    qact = st.qact.cpu().numpy()
+    near = np.arange(repave_batch) % 2 == 1
+    stats = {"repave": {
+        "batch": repave_batch, "wall_s": wall,
+        "converged": int(st.converged.sum()),
+        "near_linear_repaved": int((~qact[near].all(axis=1)).sum()),
+        "nint": [ints.nint, ints2.nint],
+        "steps_max": int(st.nsteps.max())}}
+    if not (bool(st.converged.all())
+            and stats["repave"]["near_linear_repaved"] == int(near.sum())):
+        print(json.dumps(stats), flush=True)
+        raise AssertionError(f"repave: {stats['repave']}")
+
+    pot, setups = _cons_setups(cons_batch)
+    pot = pot.to(dev)
+    for name, ints, x0, kw in setups:
+        cfg = InternalEnsembleConfig(nint=ints.nint, order=0, fmax=1e-3,
+                                     delta0=0.05, **kw)
+        t = time.perf_counter()
+        st = run_internal_ensemble(pot, ints, x0, cfg, device=dev,
+                                   max_steps=INT_CONS_SIZE["max_steps"])
+        stats[name] = {"batch": cons_batch,
+                       "wall_s": time.perf_counter() - t,
+                       "converged": int(st.converged.sum()),
+                       "steps_max": int(st.nsteps.max()),
+                       "constraint_err": constraint_error(
+                           name, st.x.cpu().numpy())}
+    print(json.dumps(stats), flush=True)
+    size = {"batch": cons_batch, "max_steps": INT_CONS_SIZE["max_steps"]}
+    for name in ("dummy", "fixed_bond"):
+        if JAX_INTERNAL_REF is None or \
+                JAX_INTERNAL_REF[name]["size"] != size:
+            raise AssertionError(f"no JAX reference for {name} at {size}")
+        ref = JAX_INTERNAL_REF[name]["converged"]
+        if abs(stats[name]["converged"] - ref) > INT_CONS_LANES_ATOL:
+            raise AssertionError(f"{name}: {stats[name]['converged']} "
+                                 f"converged vs JAX {ref}")
+        tol = max(INT_CONS_TOL[name],
+                  2.0 * JAX_INTERNAL_REF[name]["constraint_err"])
+        if stats[name]["constraint_err"] > tol:
+            raise AssertionError(f"{name}: constraint error "
+                                 f"{stats[name]['constraint_err']} > {tol}")
+    return stats
+
+
+def run_internal_queue(dev="cuda:0", batch=INT_QUEUE_SIZE["batch"],
+                       total=INT_QUEUE_SIZE["total"]):
+    """12d: ``run_internal_ensemble_queue`` on 12a's config with
+    ``spill="cartesian"`` and a checkpoint every cycle, then one resume
+    from the checkpoint written at 80% of the cycles; the full run held
+    to the JAX package's run at this size, and the resumed run finishing
+    every input, with the converged results harvested before the
+    checkpoint unchanged."""
+    import os
+    import shutil
+    import tempfile
+
+    import sella_tpu_torch.parallel.checkpoint as ckpt
+    import sella_tpu_torch.parallel.ensemble_internal as TE
+    from sella_tpu_torch import run_internal_ensemble_queue
+
+    dev = torch.device(dev)
+    pot, ints, x0 = xe4_setup(total, seed=1)
+    cfg = xe4_config(ints)
+    kw = dict(batch=batch, device=dev, spill="cartesian",
+              max_steps_per_search=INT_QUEUE_SIZE["max_steps_per_search"],
+              refill_every=INT_QUEUE_SIZE["refill_every"])
+    tmp = tempfile.mkdtemp()
+    saved = []
+    orig = ckpt.save_queue
+
+    def keep(p, *a, **k):
+        orig(p, *a, **k)
+        copy = os.path.join(tmp, f"cycle{len(saved)}.pt")
+        shutil.copy(p, copy)
+        saved.append(copy)
+
+    try:
+        ckpt.save_queue = keep
+        t = time.perf_counter()
+        try:
+            full = run_internal_ensemble_queue(
+                pot.to(dev), ints, x0, cfg,
+                checkpoint_path=os.path.join(tmp, "q.pt"), **kw)
+        finally:
+            ckpt.save_queue = orig
+        wall = time.perf_counter() - t
+        mid = saved[(4 * len(saved)) // 5]
+        done_mid = ckpt.load_queue(mid, TE.InternalSearchState,
+                                   device=dev)[3]
+        t = time.perf_counter()
+        resumed = run_internal_ensemble_queue(
+            pot.to(dev), ints, x0, cfg, checkpoint_path=mid, resume=True,
+            **kw)
+        wall_resume = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp)
+    stats = int_stats([r[2] for r in full], [r[4] for r in full],
+                      [r[5] for r in full], [r[3] for r in full])
+    # unconverged harvests go on to the Cartesian spill after the resume
+    same = all(np.array_equal(resumed[i][0], r[0]) and resumed[i][2:] ==
+               tuple(r[2:]) for i, r in done_mid.items() if r[3])
+    stats.update(batch=batch, total=total, wall_s=wall,
+                 searches_per_s=sum(r[3] for r in full) / wall,
+                 cycles=len(saved), harvested_at_resume=len(done_mid),
+                 resume_wall_s=wall_resume,
+                 resumed=int_stats([r[2] for r in resumed],
+                                   [r[4] for r in resumed],
+                                   [r[5] for r in resumed],
+                                   [r[3] for r in resumed]))
+    print(json.dumps(stats), flush=True)
+    if not (len(full) == len(resumed) == total and same
+            and 0 < len(done_mid) < total):
+        raise AssertionError("the resumed internal queue lost or changed "
+                             "harvested inputs")
+    _hold_to_jax("queue", stats, dict(INT_QUEUE_SIZE))
+    return stats
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -1282,7 +1717,9 @@ def main():
     _phase("5 headline, prfo_eigh=eigh", t)
 
     t = time.perf_counter()
-    served = run_queue_headline()
+    print(f"cut: phase 6 runs {SERVED_TOTAL} starts, not 4096",
+          flush=True)
+    served = run_queue_headline(total=SERVED_TOTAL)
     _phase("6 served EMT headline, prfo_eigh=jacobi", t)
 
     t = time.perf_counter()
@@ -1324,11 +1761,29 @@ def main():
     split_launches = jacobi_eigh_cuda.launches
     _phase("11 precision split", t)
 
-    # phases 10-11 run no hand-written kernel (the cell tier's prep and
-    # the emt151 config use torch.linalg.eigh, as the JAX package does)
+    t = time.perf_counter()
+    jacobi_eigh_cuda.launches = 0
+    run_internal_headline()
+    _phase("12a internal tier, bench config", t)
+    t12 = time.perf_counter()
+    run_robust_gram()
+    _phase("12b robust Gram eigh", t12)
+    t12 = time.perf_counter()
+    run_internal_repave_and_constraints()
+    _phase("12c repave, dummies, constraints", t12)
+    t12 = time.perf_counter()
+    run_internal_queue()
+    _phase("12d served internal queue", t12)
+    internal_launches = jacobi_eigh_cuda.launches
+    _phase("12 internal tier", t)
+
+    # phases 10-12 run no hand-written kernel (the cell tier's prep, the
+    # emt151 config and the internal tier's Gram and prep eighs use
+    # torch.linalg.eigh, as the JAX package does)
     launches = {"4": jac["jacobi_eigh_launches"],
                 "6": served["jacobi_eigh_launches"],
-                "10": cell_launches, "11": split_launches}
+                "10": cell_launches, "11": split_launches,
+                "12": internal_launches}
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh",
         "route": "cuda",

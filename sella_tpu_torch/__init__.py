@@ -4,24 +4,32 @@ The batched Cartesian RS-P-RFO saddle ensemble (``parallel.ensemble``:
 fixed batches, constraints, restarts, and the work queue with
 checkpoint/resume) and the batched atom+cell tier
 (``parallel.ensemble_cell``: fixed batches with the per-lane Niggli
-rebase, and its work queue) on the EMT, Lennard-Jones and Morse
-potentials, optionally evaluated in float32 behind a float64 interface
+rebase, and its work queue) and the batched internal-coordinate tier
+(``parallel.ensemble_internal`` over the ``coords`` engine: redundant
+internals with dummy atoms, fixed internals, TRIC fragments, the per-lane
+repave, and its work queue with the Cartesian spill) on the EMT,
+Lennard-Jones, Morse and TIP3P potentials, optionally evaluated in float32 behind a float64 interface
 (``potentials.F32Potential``), with the P-RFO prep eigendecomposition of
 the Cartesian tier on a hand-written CUDA Jacobi kernel
 (``ops.jacobi_eigh``). It imports torch and numpy, never jax: the JAX
 package ``sella_tpu`` stays the reference the port is tested against.
 """
 from .atoms import Atoms
+from .coords import Constraints, Internals
 from .parallel import (
     CellEnsembleConfig,
     CellSearchState,
     EnsembleConfig,
     EnsembleMetrics,
+    InternalEnsembleConfig,
+    InternalSearchState,
     SearchState,
     cells_of,
     init_cell_state,
+    init_internal_state,
     init_state,
     make_cell_step_fn,
+    make_internal_step_fn,
     make_queue_fns,
     make_step_fn,
     niggli_rebase_cell_lanes,
@@ -30,25 +38,40 @@ from .parallel import (
     run_cell_ensemble_queue,
     run_ensemble,
     run_ensemble_queue,
+    run_internal_ensemble,
+    run_internal_ensemble_queue,
     summarize,
 )
-from .potentials import EMT, F32Potential, LennardJones, MorsePotential
+from .potentials import (
+    EMT,
+    TIP3P,
+    F32Potential,
+    LennardJones,
+    MorsePotential,
+)
 
 __all__ = [
     "Atoms",
     "CellEnsembleConfig",
     "CellSearchState",
+    "Constraints",
     "EMT",
     "EnsembleConfig",
     "EnsembleMetrics",
     "F32Potential",
+    "InternalEnsembleConfig",
+    "InternalSearchState",
+    "Internals",
     "LennardJones",
     "MorsePotential",
     "SearchState",
+    "TIP3P",
     "cells_of",
     "init_cell_state",
+    "init_internal_state",
     "init_state",
     "make_cell_step_fn",
+    "make_internal_step_fn",
     "make_queue_fns",
     "make_step_fn",
     "niggli_rebase_cell_lanes",
@@ -57,6 +80,8 @@ __all__ = [
     "run_cell_ensemble_queue",
     "run_ensemble",
     "run_ensemble_queue",
+    "run_internal_ensemble",
+    "run_internal_ensemble_queue",
     "summarize",
 ]
 

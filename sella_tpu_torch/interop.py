@@ -1,7 +1,7 @@
 """Carrying optimizer state between the JAX package and the port.
 
-Both packages' ``SearchState`` (and ``CellSearchState``) have the same
-fields. A JAX state converted with ``np.asarray`` per field becomes the
+Both packages' ``SearchState`` (and ``CellSearchState`` and
+``InternalSearchState``) have the same fields. A JAX state converted with ``np.asarray`` per field becomes the
 port's state exactly (dtypes kept: float64 arrays, int32 counters, bool
 masks), and back. Potentials carry no state across: EMT's parameters
 follow from the atomic numbers in both packages.
@@ -18,11 +18,11 @@ from .parallel.ensemble import SearchState, _target_device
 
 def state_from_numpy(fields: Dict[str, np.ndarray], device=None,
                      state_cls=SearchState):
-    """Build a ``state_cls`` state (:class:`SearchState` by default, or
-    :class:`~sella_tpu_torch.parallel.ensemble_cell.CellSearchState`) from
-    numpy arrays keyed by field name (every field required) on
-    ``device``: by default the GPU, raising where there is none;
-    ``device="cpu"`` asks for the CPU."""
+    """Build a ``state_cls`` state (:class:`SearchState` by default,
+    ``CellSearchState`` or ``InternalSearchState``) from numpy arrays
+    keyed by field name (every field required) on ``device``: by default
+    the GPU, raising where there is none; ``device="cpu"`` asks for the
+    CPU."""
     missing = set(state_cls._fields) - set(fields)
     if missing:
         raise KeyError(f"missing {state_cls.__name__} fields: "

@@ -122,19 +122,32 @@ def jacobi_eigh(A: torch.Tensor, sweeps: int = 8):
 
 def batched_eigh(A: torch.Tensor, mode: Optional[str] = None):
     """Single chokepoint for every batched symmetric eigh in the
-    ensemble tier. ``mode``: ``f64`` (native, the default) or ``f32``
-    (factor in float32, cast back — the opt-in ``eigh_f32`` fast path).
-    The ``refined``/``robust`` modes of the JAX package are not ported
-    yet (ROADMAP.md, "Not to port" and the eigh item)."""
+    ensemble tiers. ``mode``: ``f64`` (native, the default), ``f32``
+    (factor in float32, cast back — the opt-in ``eigh_f32`` fast path) or
+    ``robust``.
+
+    ``robust`` is the mode of the internal tier's Gram matrices, which
+    hold an exactly degenerate zero cluster. In the JAX package it means
+    native float64 on the CPU and a float32-refined eigh on the TPU,
+    whose float64 eigh is emulated and returns NaN on such clusters. On
+    the CPU and on Hopper float64 is native (LAPACK, cuSOLVER), so here
+    it is float64 ``torch.linalg.eigh`` on every device, held on both to
+    the degenerate-cluster gates of the JAX package's refined eigh
+    (``tests/test_torch_coords.py`` on the CPU, ``chip_smoke.py`` phase
+    12b on the card). The JAX package's ``refined`` mode is not ported
+    and raises."""
     if mode is None:
         mode = "f64"
-    if mode in ("refined", "robust"):
+    if mode == "refined":
         raise NotImplementedError(
-            f"batched_eigh mode {mode!r} is not ported to sella_tpu_torch "
-            "yet; see ROADMAP.md (refined eigh)"
+            "batched_eigh mode 'refined' (the TPU's float32-refined eigh) "
+            "is not ported to sella_tpu_torch; 'robust' is float64 eigh "
+            "(ROADMAP.md, Not to port)"
         )
-    if mode not in ("f64", "f32"):
+    if mode not in ("f64", "f32", "robust"):
         raise ValueError(f"unknown batched_eigh mode {mode!r}")
+    if mode == "robust":
+        return torch.linalg.eigh(A.to(torch.float64))
     if mode == "f64" or A.dtype != torch.float64:
         return torch.linalg.eigh(A)
     lams, V = torch.linalg.eigh(A.to(torch.float32))

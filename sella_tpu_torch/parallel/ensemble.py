@@ -614,12 +614,18 @@ def _step_norm(s_full, ds_full, rs: str, natoms: int):
 
 def restricted_step_batched(
     g_free, Hproj, Ufree, delta, cfg: EnsembleConfig, prep=None,
+    norm_fn=None,
 ):
     """Map per-search trust radii to steps: masked Newton/bisection on
     ||s(alpha)|| = delta (``restricted_step.py:78-120``), with a fixed
     count of ``cfg.rs_maxiter`` iterations (off the card the loop stops
     once every lane is done, with the same result). Returns
-    (s_full, smag)."""
+    (s_full, smag).
+
+    ``norm_fn(s_full, ds_full) -> (val, dval)`` overrides the step norm
+    (the internal-coordinate tier passes its weighted max-internal-step
+    norm); by default it is ``cfg.rs`` ('ras'/'tr') on Cartesian
+    geometry."""
     stepper = prfo_step_batched if cfg.method == "prfo" else qn_step_batched
     Bsz = g_free.shape[0]
     dtype, dev = g_free.dtype, g_free.device
@@ -636,7 +642,10 @@ def restricted_step_batched(
         s_free, ds_free = stepper(prep, cfg.order, alpha)
         s_full = _bmv(Ufree, s_free)
         ds_full = _bmv(Ufree, ds_free)
-        val, dval = _step_norm(s_full, ds_full, cfg.rs, cfg.natoms)
+        if norm_fn is not None:
+            val, dval = norm_fn(s_full, ds_full)
+        else:
+            val, dval = _step_norm(s_full, ds_full, cfg.rs, cfg.natoms)
         return s_full, val, dval
 
     alpha = torch.full((Bsz,), alpha0, dtype=dtype, device=dev)

@@ -1,6 +1,7 @@
 """GPU tests of the port: the CUDA Jacobi kernel against its plain
 version, one ensemble step (Cartesian and atom+cell) on the card against
-the same step on the CPU, and ``F32Potential`` on the card. They skip
+the same step on the CPU, ``F32Potential`` on the card, the internal
+tier's state on the card and its ``"robust"`` Gram eigh. They skip
 without a CUDA device.
 
 This file imports neither jax nor the JAX package, so it runs on a GPU
@@ -346,3 +347,66 @@ def test_cell_step_card_matches_cpu(cuda):
     placed = C.init_cell_state(pot.to(cuda), x0, cfg,
                                np.asarray(atoms.cell), s0=s0)
     assert all(t.device.type == "cuda" for t in placed)
+
+
+def _xe4_internal():
+    from sella_tpu_torch import Atoms, Internals, MorsePotential
+    from sella_tpu_torch.parallel.ensemble_internal import (
+        InternalEnsembleConfig,
+    )
+    from sella_tpu_torch.utils.units import kB
+
+    pos0 = np.random.RandomState(4).normal(size=(4, 3), scale=3.0)
+    ints = Internals(Atoms(["Xe"] * 4, pos0))
+    ints.find_all_bonds()
+    ints.find_all_angles()
+    ints.find_all_dihedrals()
+    x0 = (pos0[None] + 0.3 * np.random.RandomState(0).normal(
+        size=(8, 4, 3))).reshape(8, 12)
+    cfg = InternalEnsembleConfig(natoms=4, nint=ints.nint, order=1,
+                                 fmax=1e-3, gamma=1e-3, newton_chord=True)
+    pot = MorsePotential(epsilon=226.9 * kB, r0=4.73, rho0=4.73 * 1.099)
+    return ints, x0, cfg, pot
+
+
+@pytest.mark.parametrize("x0_kind", ["cuda_tensor", "numpy"])
+def test_internal_state_stays_on_the_card(cuda, x0_kind):
+    """A CUDA tensor keeps its device and a numpy ``x0`` lands on the
+    GPU; every field of the internal state stays there through steps,
+    and three steps on the card match the CPU within 1e-8."""
+    from sella_tpu_torch.parallel import ensemble_internal as TE
+
+    ints, x0, cfg, pot = _xe4_internal()
+    x_in = torch.as_tensor(x0, device=cuda) if x0_kind == "cuda_tensor" \
+        else x0
+    st = TE.run_internal_ensemble(pot.to(cuda), ints, x_in, cfg,
+                                  max_steps=3)
+    assert all(getattr(st, k).device.type == "cuda" for k in st._fields)
+    st_cpu = TE.run_internal_ensemble(pot.to("cpu"), ints, x0, cfg,
+                                      max_steps=3, device="cpu")
+    np.testing.assert_allclose(st.x.cpu().numpy(), st_cpu.x.numpy(),
+                               atol=1e-8)
+    np.testing.assert_array_equal(st.nmatvec.cpu().numpy(),
+                                  st_cpu.nmatvec.numpy())
+
+
+def test_robust_eigh_of_degenerate_gram_on_the_card(cuda):
+    """``batched_eigh(.., "robust")`` on the card: the Gram matrices of
+    the Xe4 internal Jacobian (a zero cluster of multiplicity 5) give
+    finite eigenpairs, 5 eigenvalues below 1e-10 of the largest, and
+    residual and orthonormality within 1e-12."""
+    from sella_tpu_torch.ops.linalg import batched_eigh
+
+    ints, x0, _, _ = _xe4_internal()
+    B = ints._get_engine()._jac_impl(
+        torch.as_tensor(x0, device=cuda).reshape(8, 4, 3),
+        torch.zeros(3, 3, dtype=torch.float64, device=cuda))
+    G = B @ B.transpose(1, 2)
+    lams, V = batched_eigh(G, "robust")
+    assert bool(torch.isfinite(lams).all() and torch.isfinite(V).all())
+    scale = lams[:, -1:].abs()
+    assert bool(((lams < 1e-10 * scale).sum(1) == 5).all())
+    res = (G @ V - V * lams[:, None, :]).abs().amax((1, 2)) / scale[:, 0]
+    assert float(res.max()) <= 1e-12
+    eye = torch.eye(G.shape[1], dtype=G.dtype, device=cuda)
+    assert float((V.transpose(1, 2) @ V - eye).abs().max()) <= 1e-12

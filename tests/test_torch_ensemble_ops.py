@@ -89,7 +89,16 @@ def test_batched_eigh_modes(mode):
 
 @pytest.mark.parametrize("mode", ["refined", "robust", "bogus"])
 def test_batched_eigh_unported_modes_raise(mode):
+    """``refined`` is not ported and an unknown mode is refused;
+    ``robust`` is ported as float64 ``torch.linalg.eigh`` (the Gram
+    eighs of the internal tier) and no longer raises."""
     A = _t(_rand_sym(np.random.RandomState(0), 2, 4))
+    if mode == "robust":
+        w, V = batched_eigh(A, mode)
+        w64, V64 = torch.linalg.eigh(A)
+        assert w.dtype == torch.float64
+        assert torch.equal(w, w64) and torch.equal(V, V64)
+        return
     with pytest.raises(NotImplementedError if mode != "bogus"
                        else ValueError):
         batched_eigh(A, mode)

@@ -3,8 +3,10 @@
 A fresh interpreter with ``sys.modules['jax'] = None`` (so any
 ``import jax`` raises) imports every module of the port (walked with
 ``pkgutil``), drives two LJ4 steps of the ensemble, a two-input work
-queue with a checkpoint, two steps of the atom+cell tier on periodic LJ
-and one ``F32Potential`` gradient.
+queue with a checkpoint, two steps of the atom+cell tier on periodic LJ,
+one ``F32Potential`` gradient, two steps of the internal-coordinate tier
+(the state round-tripped through ``interop``) and a two-input internal
+queue.
 """
 import os
 import subprocess
@@ -31,7 +33,11 @@ assert {'sella_tpu_torch.parallel.checkpoint',
         'sella_tpu_torch.parallel.metrics',
         'sella_tpu_torch.parallel.ensemble_cell',
         'sella_tpu_torch.potentials.mixed', 'sella_tpu_torch.pes.cell',
-        'sella_tpu_torch.utils.lattice'} <= set(mods), mods
+        'sella_tpu_torch.utils.lattice', 'sella_tpu_torch.coords.primitives',
+        'sella_tpu_torch.coords.constraints',
+        'sella_tpu_torch.coords.topology', 'sella_tpu_torch.coords.internals',
+        'sella_tpu_torch.parallel.ensemble_internal',
+        'sella_tpu_torch.potentials.tip3p'} <= set(mods), mods
 from sella_tpu_torch import (EnsembleConfig, LennardJones, run_ensemble,
                              run_ensemble_queue, summarize)
 x0 = np.array([[0, 0, 0, 1, 0, 0, .5, .87, 0, .5, .29, .82]]) * 1.12
@@ -59,6 +65,30 @@ g32 = F32Potential(LennardJones()).grad(torch.as_tensor(x0[0]),
                                         torch.zeros((3, 3),
                                                     dtype=torch.float64))
 assert g32.dtype == torch.float64 and bool(torch.isfinite(g32).all())
+from sella_tpu_torch import (InternalEnsembleConfig, InternalSearchState,
+                             Internals, MorsePotential, Atoms,
+                             run_internal_ensemble,
+                             run_internal_ensemble_queue)
+from sella_tpu_torch.interop import state_from_numpy, state_to_numpy
+pos0 = np.random.RandomState(4).normal(size=(4, 3), scale=3.0)
+ints = Internals(Atoms(['Xe'] * 4, pos0))
+ints.find_all_bonds(); ints.find_all_angles(); ints.find_all_dihedrals()
+morse = MorsePotential(epsilon=0.01955, r0=4.73, rho0=4.73 * 1.099)
+icfg = InternalEnsembleConfig(natoms=4, nint=ints.nint, order=1,
+                              gamma=1e-3)
+xi = pos0.reshape(1, 12) + 0.05
+ist = run_internal_ensemble(morse, ints, xi, icfg, max_steps=2,
+                            device='cpu')
+assert int(ist.nsteps[0]) == 2 and bool(torch.isfinite(ist.x).all())
+back = state_from_numpy(state_to_numpy(ist), device='cpu',
+                        state_cls=InternalSearchState)
+assert all(torch.equal(getattr(back, k), getattr(ist, k))
+           for k in InternalSearchState._fields)
+ires = run_internal_ensemble_queue(
+    morse, ints, np.vstack([xi, xi + 0.02]),
+    icfg._replace(order=0, eig=False), batch=1, max_steps_per_search=4,
+    refill_every=2, spill=None, device='cpu')
+assert len(ires) == 2 and all(len(r) == 6 for r in ires), ires
 bad = [m for m in sys.modules
        if (m == 'jax' or m.startswith(('jax.', 'jaxlib', 'sella_tpu.')) or
            m == 'sella_tpu') and sys.modules[m] is not None]

@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
 """The JAX package's results on the configurations of ``chip_smoke.py``
-phases 7 and 8, computed on the CPU.
+phases 7, 8 and 12, computed on the CPU.
 
 The card's host has no JAX, so ``chip_smoke.py`` holds the port to the
 numbers this script prints: one JSON line, ``{"JAX_LJ4_REF": ...,
-"JAX_CONSTRAINT_REF": ...}``, whose two values are copied over the
-constants of those names. Each carries the sizes it was computed at
-under ``"size"``, and ``chip_smoke.py`` raises when its own sizes differ:
+"JAX_CONSTRAINT_REF": ..., "JAX_INTERNAL_REF": ...}``, whose values are
+copied over the constants of those names. Each carries the sizes it was
+computed at under ``"size"``, and ``chip_smoke.py`` raises when its own
+sizes differ:
 
 * phase 7: the LJ4 composite queue of ``bench.run_lj4_queue`` at the
   sizes of ``chip_smoke.LJ4_SIZE`` (the bench caps tail budgets at 4x the
   per-search budget, so ``LJ4_SIZE`` must too);
 * phase 8: the three constrained LJ4 configs of ``run_constraints`` at
   1024 lanes and ``chip_smoke.CONSTRAINT_MAX_STEPS`` steps: converged
-  lanes, and the mean steps (printed, not gated).
+  lanes, and the mean steps (printed, not gated);
+* phase 12: the bench's internal Xe4 config at ``chip_smoke.
+  INTERNAL_SIZE`` (12a), the dummy-atom and fixed-bond configs at
+  ``INT_CONS_SIZE`` (12c) and the served internal queue at
+  ``INT_QUEUE_SIZE`` (12d), each with its converged share and counts.
 
-Run from the repository root (a minute or two on one CPU):
+Run from the repository root (about ten minutes on one CPU; ``--only
+internal`` or ``--only cartesian`` computes one of the two groups):
 
     JAX_PLATFORMS=cpu python3 tools/jax_reference_counts.py
 """
@@ -84,6 +90,126 @@ def constraints(batch=1024):
     return out
 
 
+def _jax_xe4(positions):
+    from sella_tpu.atoms import Atoms
+    from sella_tpu.coords.internals import Internals
+
+    ints = Internals(Atoms(["Xe"] * len(positions), positions))
+    ints.find_all_bonds()
+    ints.find_all_angles()
+    ints.find_all_dihedrals()
+    # a jitted init_internal_state cannot call the host guess Hessian
+    H0 = ints.guess_hessian()
+    ints.guess_hessian = lambda *a, **k: H0
+    return ints
+
+
+def _jit_internal_helpers(JE):
+    """Jit init_internal_state and refresh_internal for the JAX queue
+    (eagerly each dispatches hundreds of single-operation compiles);
+    once per process."""
+    if getattr(JE, "_jitted_for_reference", False):
+        return
+    JE._jitted_for_reference = True
+    JE.init_internal_state = jax.jit(JE.init_internal_state,
+                                     static_argnums=(0, 1, 3, 4))
+    JE.refresh_internal = jax.jit(JE.refresh_internal,
+                                  static_argnums=(1, 2, 3, 4),
+                                  static_argnames=("delta0",))
+
+
+def _xe4_jax():
+    import sella_tpu.parallel.ensemble_internal as JE
+    from sella_tpu.potentials import MorsePotential
+    from sella_tpu.utils.units import kB
+
+    _jit_internal_helpers(JE)
+    r0 = 4.73
+    pot = MorsePotential(epsilon=226.9 * kB, r0=r0, rho0=r0 * 1.099)
+    ints = _jax_xe4(np.random.RandomState(4).normal(size=(4, 3), scale=3.0))
+    cfg = JE.InternalEnsembleConfig(natoms=4, nint=ints.nint, order=1,
+                                    fmax=1e-3, gamma=1e-3, restart_after=60,
+                                    absb="eigh", newton_chord=True)
+    return JE, pot, ints, cfg
+
+
+def internal_headline():
+    JE, pot, ints, cfg = _xe4_jax()
+    size = dict(cs.INTERNAL_SIZE)
+    x0 = cs.xe4_setup(size["batch"])[2]
+    step = jax.jit(JE.make_internal_step_fn(pot, ints, cfg))
+    st = JE.init_internal_state(pot, ints, jnp.asarray(x0), cfg, None)
+    key = jax.random.PRNGKey(0)
+    for i in range(size["max_steps"]):
+        st = step(st, jax.random.fold_in(key, i))
+        if bool(jnp.all(st.converged)):
+            break
+    return {"size": size, **cs.int_stats(st.nsteps, st.nmatvec, st.neval,
+                                         st.converged)}
+
+
+def internal_constraints():
+    """The dummy-atom and fixed-bond configs: converged lanes and the
+    largest constraint error at the final geometries."""
+    from sella_tpu.coords.constraints import DuplicateInternalError
+
+    JE, pot, _, _ = _xe4_jax()
+    size = dict(cs.INT_CONS_SIZE)
+    batch = size["batch"]
+    r0 = 4.73
+    lin = np.array([[0.0, 0, 0], [r0, 0, 0], [2 * r0, 0, 0]])
+    tet = np.array([[0, 0, 0], [1, 0, 0], [0.5, np.sqrt(3) / 2, 0],
+                    [0.5, np.sqrt(3) / 6, np.sqrt(2.0 / 3)]]) * r0
+    dints = _jax_xe4(lin)
+    fints = _jax_xe4(tet)
+    try:
+        fints.add_bond((0, 1))
+    except DuplicateInternalError:
+        pass
+    fints.cons.fix_bond((0, 1), target=1.15 * r0)
+    out = {}
+    for name, ints_c, x0, kw in (
+            ("dummy", dints, (lin[None] + 0.2 * np.random.RandomState(
+                0).normal(size=(batch, 3, 3))).reshape(batch, 9),
+             dict(natoms=3, ndummies=1, ncons=2)),
+            ("fixed_bond", fints, (tet[None] + 0.15 * np.random.RandomState(
+                1).normal(size=(batch, 4, 3))).reshape(batch, 12),
+             dict(natoms=4, ncons=1))):
+        c = JE.InternalEnsembleConfig(nint=ints_c.nint, order=0, fmax=1e-3,
+                                      delta0=0.05, **kw)
+        st = JE.run_internal_ensemble(pot, ints_c, jnp.asarray(x0), c,
+                                      max_steps=size["max_steps"])
+        out[name] = {"size": size, "converged": int(st.converged.sum()),
+                     "constraint_err": cs.constraint_error(
+                         name, np.asarray(st.x))}
+    return out
+
+
+def internal_queue():
+    JE, pot, ints, cfg = _xe4_jax()
+    size = dict(cs.INT_QUEUE_SIZE)
+    x0 = cs.xe4_setup(size["total"], seed=1)[2]
+    res = JE.run_internal_ensemble_queue(
+        pot, ints, jnp.asarray(x0), cfg, batch=size["batch"],
+        max_steps_per_search=size["max_steps_per_search"],
+        refill_every=size["refill_every"], spill="cartesian")
+    return {"size": size, **cs.int_stats(
+        [r[2] for r in res], [r[4] for r in res], [r[5] for r in res],
+        [r[3] for r in res])}
+
+
+def internal():
+    return {"headline": internal_headline(), **internal_constraints(),
+            "queue": internal_queue()}
+
+
 if __name__ == "__main__":
-    print(json.dumps({"JAX_LJ4_REF": lj4_composite(),
-                      "JAX_CONSTRAINT_REF": constraints()}))
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
+        else None
+    out = {}
+    if only in (None, "cartesian"):
+        out.update(JAX_LJ4_REF=lj4_composite(),
+                   JAX_CONSTRAINT_REF=constraints())
+    if only in (None, "internal"):
+        out["JAX_INTERNAL_REF"] = internal()
+    print(json.dumps(out))
