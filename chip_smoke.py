@@ -51,14 +51,25 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
     matrices (zero cluster of multiplicity 5); (c) the repave of
     near-linear lanes at 256 lanes and the dummy-atom and fixed-bond
     configs at 1024 lanes; (d) the served internal queue with the
-    Cartesian spill, a checkpoint and a resume. 12a, 12c and 12d are
-    held to the JAX package's runs at the same sizes.
+    Cartesian spill, a checkpoint and a resume (256 inputs through 128
+    lanes, cut from 512 for time). 12a, 12c and 12d are
+    held to the JAX package's runs at the same sizes;
+13. the large-system path: (a) the bench's largescale block at 10,000
+    atoms (a Cu(111) 50x50x4 slab): matrix-free MMF through binned and
+    row-chunked LJ (order 0, held to each other), ``BinnedEMT`` (order
+    0, held to the CPU, and chunked against unchunked) and the
+    committed MLFF behind ``F32Potential`` (order 1, held to float64),
+    each with s/step, force and HVP times, HVPs and host syncs per step,
+    peak memory and no bin overflow; (b) an LJ7 saddle, a Cu slab and a
+    1024-atom binned-EMT minimization held to the JAX package's counts
+    and energies.
 
-The JAX package's numbers for phases 7, 8 and 12 come from
+The JAX package's numbers for phases 7, 8, 12 and 13b come from
 ``tools/jax_reference_counts.py`` (run on a CPU; the card's host has no
-JAX); phases 10-12 print the JAX package's TPU figures beside their own.
-The last three lines of standard output are the kernels' JSON record, the
-LJ4 summary and ``{"ok": true, "device": {...}}``.
+JAX); phases 10-13 print the JAX package's TPU figures beside their own.
+The last four lines of standard output are the kernels' JSON record, the
+large-system summary, the LJ4 summary and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -1266,8 +1277,10 @@ INTERNAL_SIZE = {"batch": 1024, "max_steps": 40}
 # tests/test_ensemble_internal.py:125-228 at 1024 lanes
 INT_REPAVE_SIZE = {"batch": 256, "max_steps": 150}
 INT_CONS_SIZE = {"batch": 1024, "max_steps": 200}
-# 12d: the served queue on 12a's config, inputs 4x the lanes
-INT_QUEUE_SIZE = {"batch": 128, "total": 512, "max_steps_per_search": 60,
+# 12d: the served queue on 12a's config, inputs 2x the lanes (cut from
+# 4x so that phase 13 fits the script's time: the step is launch-bound,
+# so the queue's wall follows its cycles, ~2 searches a lane)
+INT_QUEUE_SIZE = {"batch": 128, "total": 256, "max_steps_per_search": 60,
                   "refill_every": 5}
 INT_COUNTS = ("mean_steps_converged", "mean_matvecs", "mean_force_calls")
 INT_COUNTS_RTOL = 0.05
@@ -1296,12 +1309,12 @@ JAX_INTERNAL_REF = {
     "fixed_bond": {"size": {"batch": 1024, "max_steps": 200},
                    "converged": 1024,
                    "constraint_err": 0.000598340508966011},
-    "queue": {"size": {"batch": 128, "total": 512,
+    "queue": {"size": {"batch": 128, "total": 256,
                        "max_steps_per_search": 60, "refill_every": 5},
-              "converged_frac": 0.998046875,
-              "mean_steps_converged": 27.53033268101761,
-              "mean_matvecs": 36.296875,
-              "mean_force_calls": 28.775390625}}
+              "converged_frac": 0.99609375,
+              "mean_steps_converged": 27.643137254901962,
+              "mean_matvecs": 36.58203125,
+              "mean_force_calls": 29.0625}}
 # the JAX package's figures on a TPU v5 lite (bench.py:134-142, 165-176):
 # printed beside 12a, not compared, and not the port's goals
 TPU_INTERNAL = {"s_per_step": 6.35, "searches_per_s": 3.68,
@@ -1677,6 +1690,382 @@ def run_internal_queue(dev="cuda:0", batch=INT_QUEUE_SIZE["batch"],
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the large-system path
+# ---------------------------------------------------------------------------
+# 13a: the bench's largescale block (bench.py:952-1064, BASELINE config 5)
+# at its full 10,000 atoms: one warm step, then LARGE_TIMED_STEPS timed
+LARGE_SLAB = {"symbol": "Cu", "a": 3.59, "size": (50, 50, 4)}
+LARGE_LJ = {"sigma": 2.3, "epsilon": 0.4, "rc": 5.5}
+LARGE_TIMED_STEPS = 3
+LARGE_CHUNK = 1000
+# binned and chunked LJ are one physical model (bench.py:981-982): at x0
+# the energy to 1e-10 relative and the gradient to 1e-9 of its max-norm,
+# and the positions after the steps within 1e-7 A
+LJ_PAIR_E_RTOL = 1e-10
+LJ_PAIR_G_RTOL = 1e-9
+LJ_PAIR_X_ATOL = 1e-7
+# BinnedEMT on the card vs the port's CPU float64 evaluation (summation
+# order only), and row-chunked vs not (the same terms, another order)
+LARGE_EMT_E_RTOL = 1e-10
+LARGE_EMT_G_ATOL = 1e-9
+CHUNK_RTOL = 1e-12
+# F32Potential(MLPotential) forces vs float64 at x0: 3e-5 max(scale, 1)
+# in tests/test_mlff.py:160, whose box spans 10.77 A. Float32 positions,
+# and the minimum-image displacements made from them, are resolved to
+# the float32 spacing of the coordinates, which grows with their size
+# (7.6e-6 A at the 10,000-atom slab's 127 A; in the JAX package's
+# F32Potential as here), so the bound scales with the largest coordinate
+# over 10.77 A; the error of float64 itself at the float32-rounded
+# positions is printed beside it
+MLFF_F32_ATOL = 3e-5
+MLFF_F32_BOX = 10.77
+# 13b: three runs held to the JAX package's, at these sizes
+LARGESCALE_RUNS = {
+    # tests/test_largescale.py:69-97 from an injected mode
+    "lj7_saddle": {"order": 1, "fmax": 1e-3, "max_move": 0.1,
+                   "max_steps": 800, "rattle": 0.15, "rattle_seed": 5,
+                   "v0_seed": 0},
+    # tests/test_largescale.py:53-66
+    "cu_slab_min": {"size": [3, 4, 3], "order": 0, "fmax": 5e-3,
+                    "max_move": 0.2, "max_steps": 500, "rattle": 0.05,
+                    "rattle_seed": 2},
+    "binned_emt_min": {"size": [16, 16, 4], "vacuum": 12.0, "order": 0,
+                       "fmax": 1e-3, "max_move": 0.2, "max_steps": 500,
+                       "rattle": 0.05, "rattle_seed": 2},
+}
+# the JAX package's runs of LARGESCALE_RUNS on a CPU
+# (tools/jax_reference_counts.py --only largescale)
+JAX_LARGESCALE_REF = {
+    "size": {"lj7_saddle": {"order": 1, "fmax": 0.001, "max_move": 0.1,
+                            "max_steps": 800, "rattle": 0.15,
+                            "rattle_seed": 5, "v0_seed": 0},
+             "cu_slab_min": {"size": [3, 4, 3], "order": 0, "fmax": 0.005,
+                             "max_move": 0.2, "max_steps": 500,
+                             "rattle": 0.05, "rattle_seed": 2},
+             "binned_emt_min": {"size": [16, 16, 4], "vacuum": 12.0,
+                                "order": 0, "fmax": 0.001, "max_move": 0.2,
+                                "max_steps": 500, "rattle": 0.05,
+                                "rattle_seed": 2}},
+    "lj7_saddle": {"converged": True, "nsteps": 50, "neval": 51,
+                   "nmatvec": 2172, "energy": -15.026438105114599,
+                   "lam": -6.763989545938207},
+    "cu_slab_min": {"converged": True, "nsteps": 10, "neval": 11,
+                    "nmatvec": 0, "energy": 8.621979275977367, "lam": 0.0},
+    "binned_emt_min": {"converged": True, "nsteps": 33, "neval": 34,
+                       "nmatvec": 0, "energy": 183.53106200058028,
+                       "lam": 0.0}}
+LARGESCALE_COUNTS_RTOL = 0.05
+LARGESCALE_E_ATOL = 1e-5
+# phase 13's share of the script's time
+PHASE13_MAX_S = 150
+# the JAX package's bench block on a TPU v5 lite (BENCH_r04.json), s/step:
+# printed beside 13a, not compared, and not the port's goals
+TPU_LARGESCALE = {"binned": 1.491, "chunked": 3.236, "binned_emt": 1.66,
+                  "mlff_order1": 14.718}
+
+
+def lj7_start():
+    """The LJ7 start of tests/test_largescale.py:69-97 and a normalized
+    numpy mode, from LARGESCALE_RUNS["lj7_saddle"]."""
+    cfg = LARGESCALE_RUNS["lj7_saddle"]
+    pos = np.array([
+        [0.0, 0.0, 1.1], [0.0, 0.0, -1.1], [1.12, 0.0, 0.0],
+        *[[1.12 * np.cos(2 * np.pi * k / 5),
+           1.12 * np.sin(2 * np.pi * k / 5), 0] for k in range(1, 5)],
+    ]) * 0.9
+    pos = pos + cfg["rattle"] * np.random.RandomState(
+        cfg["rattle_seed"]).normal(size=pos.shape)
+    v0 = np.random.RandomState(cfg["v0_seed"]).normal(size=pos.size)
+    return pos.ravel(), v0 / np.linalg.norm(v0)
+
+
+def rattled_slab(name):
+    """(x0, cell) of a slab run of LARGESCALE_RUNS, numpy."""
+    from sella_tpu_torch.potentials import fcc111_slab
+
+    cfg = LARGESCALE_RUNS[name]
+    kw = {"vacuum": cfg["vacuum"]} if "vacuum" in cfg else {}
+    slab = fcc111_slab("Cu", 3.59, size=tuple(cfg["size"]), **kw)
+    pos = slab.positions + cfg["rattle"] * np.random.RandomState(
+        cfg["rattle_seed"]).normal(size=slab.positions.shape)
+    return pos.ravel(), np.asarray(slab.cell)
+
+
+def _count_syncs(fn, dev):
+    """``fn()`` and the host syncs the card reported meanwhile
+    (``torch.cuda.set_sync_debug_mode``); None off the card."""
+    if torch.device(dev).type != "cuda":
+        return fn(), None
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(x.message) for x in w)
+
+
+def _event_ms(fn, dev, reps=3):
+    return _cuda_ms(fn, reps) if torch.device(dev).type == "cuda" else None
+
+
+def _peak_reset(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(dev):
+    if torch.device(dev).type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _bins_of(pot):
+    return getattr(getattr(pot, "_inner32", pot), "_bins", None)
+
+
+def _overflow(pot, x, cell_t):
+    bins = _bins_of(pot)
+    return 0 if bins is None else int(bins.overflow_count(x.reshape(-1, 3),
+                                                          cell_t))
+
+
+def mmf_block(name, pot, x0, cell, order, dev, steps=LARGE_TIMED_STEPS):
+    """The bench's timing of one potential (bench.py:987-999): ``mmf_init``
+    on a numpy x0, one warm step, then ``steps`` timed steps; beside them
+    the force call's and one HVP's time (CUDA events), HVPs and host
+    syncs per step (the step's own count, and the card's), peak memory
+    from before ``mmf_init``, and the bin overflow before and after."""
+    from sella_tpu_torch.parallel.largescale import make_mmf_step, mmf_init
+
+    sync = _sync_for(dev)
+    pot = pot.to(dev)
+    cell_t = torch.as_tensor(cell, device=dev)
+    _peak_reset(dev)
+    t = time.perf_counter()
+    state = mmf_init(pot, x0, cell, device=dev)
+    over0 = _overflow(pot, state.x, cell_t)
+    step = make_mmf_step(pot, cell, order=order, fmax=1e-3)
+    state = step(state)
+    sync()
+    warm_s = time.perf_counter() - t
+    h0, s0 = step.hvp_calls, step.host_syncs
+
+    def timed():
+        st = state
+        for _ in range(steps):
+            st = step(st)
+        sync()
+        return st
+
+    t = time.perf_counter()
+    state, card_syncs = _count_syncs(timed, dev)
+    s_per_step = (time.perf_counter() - t) / steps
+    peak = _peak_gib(dev)
+    x = state.x
+    v = torch.as_tensor(np.random.RandomState(1).normal(size=x.shape),
+                        device=dev)
+    out = {
+        "natoms": x.numel() // 3, "order": order, "s_per_step": s_per_step,
+        "warm_step_s": warm_s,
+        "force_ms": _event_ms(lambda: pot.energy_and_grad(x, cell_t), dev),
+        "hvp_ms": _event_ms(lambda: pot.hvp(x, v, cell_t), dev),
+        "hvps_per_step": (step.hvp_calls - h0) / steps,
+        "host_syncs_per_step": (step.host_syncs - s0) / steps,
+        "card_syncs_per_step": (None if card_syncs is None
+                                else card_syncs / steps),
+        "peak_gib": peak,
+        "overflow_before": over0, "overflow_after": _overflow(pot, x,
+                                                              cell_t),
+        "nsteps": int(state.nsteps), "lam": float(state.lam),
+    }
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 [state.x, state.f, state.g, state.mode, *state.mem])
+    print(f"  13a {name}: " + json.dumps(out), flush=True)
+    if not finite:
+        raise AssertionError(f"13a {name}: a state field is not finite")
+    if out["overflow_before"] or out["overflow_after"]:
+        raise AssertionError(f"13a {name}: bins overflow")
+    return out, state
+
+
+def run_largescale_bench(dev="cuda:0", size=LARGE_SLAB["size"]):
+    """Phase 13a: the bench's 10,000-atom block on the port."""
+    from sella_tpu_torch.potentials import (BinnedEMT, BinnedPairPotential,
+                                            ChunkedPairPotential,
+                                            F32Potential, LennardJones,
+                                            MLPotential, fcc111_slab)
+    from sella_tpu_torch.potentials.mlff import WEIGHTS_CU_EMT
+
+    slab = fcc111_slab(LARGE_SLAB["symbol"], LARGE_SLAB["a"], size=size)
+    x0, cell = slab.positions.ravel(), np.asarray(slab.cell)
+    n = x0.size // 3
+    res = {"natoms": n}
+    inner = LennardJones(pbc=True, **LARGE_LJ)
+    binned = BinnedPairPotential(inner, rc=LARGE_LJ["rc"], x0=x0, cell=cell,
+                                 shift=False)
+    chunked = ChunkedPairPotential(inner, chunk=LARGE_CHUNK)
+    lj = {}
+    for name, pot in (("binned", binned), ("chunked", chunked)):
+        out, st = mmf_block(f"lj_{name}", pot, x0, cell, 0, dev)
+        xt, ct = (torch.as_tensor(a, device=dev) for a in (x0, cell))
+        e, g = pot.energy_and_grad(xt, ct)
+        lj[name] = (float(e), g.cpu(), st.x.cpu())
+        res[f"lj_{name}"] = out
+    (eb, gb, xb), (ec, gc, xc) = lj["binned"], lj["chunked"]
+    d = {"energy_rel": abs(eb - ec) / abs(ec),
+         "grad_rel_maxnorm": float((gb - gc).abs().max()
+                                   / max(float(gc.abs().max()), 1.0)),
+         "x_after_steps": float((xb - xc).abs().max())}
+    res["lj_binned_vs_chunked"] = d
+    print(f"  13a binned vs chunked LJ: {json.dumps(d)}", flush=True)
+    if not (d["energy_rel"] < LJ_PAIR_E_RTOL
+            and d["grad_rel_maxnorm"] < LJ_PAIR_G_RTOL
+            and d["x_after_steps"] < LJ_PAIR_X_ATOL):
+        raise AssertionError("13a: binned and chunked LJ disagree")
+
+    slab_e = fcc111_slab(LARGE_SLAB["symbol"], LARGE_SLAB["a"], size=size,
+                         vacuum=12.0)
+    xe, ce = slab_e.positions.ravel(), np.asarray(slab_e.cell)
+    z = np.array([29] * n)
+    emt = BinnedEMT(z, xe, ce, capacity=32)
+    res["binned_emt"], _ = mmf_block("binned_emt", emt, xe, ce, 0, dev)
+    # the card against the port's own CPU float64 evaluation at x0
+    xt, ct = (torch.as_tensor(a, device=dev) for a in (xe, ce))
+    e_card, g_card = emt.energy_and_grad(xt, ct)
+    cpu = BinnedEMT(z, xe, ce, capacity=32)
+    e_cpu, g_cpu = cpu.energy_and_grad(torch.as_tensor(xe),
+                                       torch.as_tensor(ce))
+    v = torch.as_tensor(np.random.RandomState(1).normal(size=xe.shape),
+                        device=dev)
+    # row-chunked vs not: the same energy and gradient, a smaller peak
+    emt_c = BinnedEMT(z, xe, ce, capacity=32, chunk=LARGE_CHUNK).to(dev)
+    peaks = {}
+    for key, pot in (("full", emt), ("chunk", emt_c)):
+        _peak_reset(dev)
+        eg = pot.energy_and_grad(xt, ct)
+        peaks[f"force_{key}_gib"] = _peak_gib(dev)
+        _peak_reset(dev)
+        pot.hvp(xt, v, ct)
+        peaks[f"hvp_{key}_gib"] = _peak_gib(dev)
+        if key == "chunk":
+            e_ch, g_ch = eg
+    res["binned_emt_chunk"], _ = mmf_block(
+        f"binned_emt_chunk{LARGE_CHUNK}", emt_c, xe, ce, 0, dev)
+    d = {"card_vs_cpu_energy_rel": abs(float(e_card) - float(e_cpu))
+         / abs(float(e_cpu)),
+         "card_vs_cpu_grad_abs": float((g_card.cpu() - g_cpu).abs().max()),
+         "chunk_vs_full_energy_rel": abs(float(e_ch) - float(e_card))
+         / abs(float(e_card)),
+         "chunk_vs_full_grad_rel": float((g_ch - g_card).abs().max()
+                                         / g_card.abs().max()),
+         **peaks}
+    res["binned_emt_checks"] = d
+    print(f"  13a BinnedEMT: {json.dumps(d)}", flush=True)
+    if not (d["card_vs_cpu_energy_rel"] < LARGE_EMT_E_RTOL
+            and d["card_vs_cpu_grad_abs"] < LARGE_EMT_G_ATOL):
+        raise AssertionError("13a: BinnedEMT on the card disagrees with "
+                             "the CPU")
+    if not (d["chunk_vs_full_energy_rel"] < CHUNK_RTOL
+            and d["chunk_vs_full_grad_rel"] < CHUNK_RTOL):
+        raise AssertionError("13a: chunked BinnedEMT is another function")
+    if torch.device(dev).type == "cuda" and not (
+            peaks["hvp_chunk_gib"] < peaks["hvp_full_gib"]):
+        raise AssertionError("13a: chunk did not lower the HVP's peak")
+    del emt_c, cpu
+
+    ml64 = MLPotential(z, xe, ce, rc=4.5, capacity=24,
+                       params=MLPotential.params_from_npz(WEIGHTS_CU_EMT))
+    ml = F32Potential(ml64)
+    res["mlff_f32"], _ = mmf_block("mlff_f32_order1", ml, xe, ce, 1, dev)
+    ml64 = ml64.to(dev)
+    g64 = ml64.grad(xt, ct)
+    g64_rounded = ml64.grad(xt.float().double(), ct)
+    g32 = ml.grad(xt, ct)
+    scale = float(g64.abs().max())
+    err = float((g32 - g64).abs().max())
+    tol = MLFF_F32_ATOL * max(scale, 1.0) * max(
+        1.0, float(np.abs(xe).max()) / MLFF_F32_BOX)
+    _peak_reset(dev)
+    ml64.hvp(xt, v, ct)
+    peak64 = _peak_gib(dev)
+    _peak_reset(dev)
+    ml.hvp(xt, v, ct)
+    peak32 = _peak_gib(dev)
+    d = {"f32_vs_f64_force_abs": err, "tolerance": tol,
+         "force_scale": scale,
+         "f32_vs_f64_rounded_force_abs": float((g32 - g64_rounded).abs()
+                                               .max()),
+         "f64_rounded_vs_x0_force_abs": float((g64_rounded - g64).abs()
+                                              .max()),
+         "hvp_peak_f32_gib": peak32, "hvp_peak_f64_gib": peak64}
+    res["mlff_checks"] = d
+    print(f"  13a MLFF: {json.dumps(d)}", flush=True)
+    if not err < tol:
+        raise AssertionError("13a: float32 MLFF forces disagree")
+    return res
+
+
+def run_largescale_held(dev="cuda:0"):
+    """Phase 13b: three runs held to the JAX package's (counts within 5%,
+    final energy within 1e-5 eV)."""
+    from sella_tpu_torch.parallel.largescale import (drive_mmf,
+                                                     make_mmf_step, mmf_init,
+                                                     run_mmf)
+    from sella_tpu_torch.potentials import EMT, BinnedEMT, LennardJones
+
+    if JAX_LARGESCALE_REF is None or \
+            JAX_LARGESCALE_REF["size"] != LARGESCALE_RUNS:
+        raise AssertionError("no JAX reference at LARGESCALE_RUNS; rerun "
+                             "tools/jax_reference_counts.py --only "
+                             "largescale")
+    res = {}
+    for name, cfg in LARGESCALE_RUNS.items():
+        kw = {k: cfg[k] for k in ("order", "fmax", "max_move", "max_steps")}
+        t = time.perf_counter()
+        if name == "lj7_saddle":
+            x0, v0 = lj7_start()
+            pot = LennardJones()
+            step = make_mmf_step(pot, None, **{
+                k: kw[k] for k in ("order", "fmax", "max_move")})
+            st = mmf_init(pot, x0, device=dev)._replace(
+                mode=torch.as_tensor(v0, device=dev))
+            st = drive_mmf(step, st, kw["max_steps"])
+        else:
+            x0, cell = rattled_slab(name)
+            z = [29] * (x0.size // 3)
+            pot = EMT(z, pbc=True) if name == "cu_slab_min" \
+                else BinnedEMT(z, x0, cell)
+            st = run_mmf(pot.to(dev), x0, cell=cell, device=dev, **kw)
+        _sync_for(dev)()
+        out = {"converged": bool(st.converged), "nsteps": int(st.nsteps),
+               "neval": int(st.neval), "nmatvec": int(st.nmatvec),
+               "energy": float(st.f), "lam": float(st.lam),
+               "wall_s": time.perf_counter() - t}
+        ref = JAX_LARGESCALE_REF[name]
+        print(f"  13b {name}: {json.dumps(out)} JAX {json.dumps(ref)}",
+              flush=True)
+        if not out["converged"]:
+            raise AssertionError(f"13b {name} did not converge")
+        for k in ("nsteps", "neval", "nmatvec"):
+            if abs(out[k] - ref[k]) > LARGESCALE_COUNTS_RTOL * ref[k]:
+                raise AssertionError(f"13b {name} {k} = {out[k]} is more "
+                                     f"than 5% from JAX's {ref[k]}")
+        if abs(out["energy"] - ref["energy"]) > LARGESCALE_E_ATOL:
+            raise AssertionError(f"13b {name} energy {out['energy']} vs "
+                                 f"JAX {ref['energy']}")
+        if cfg["order"] == 1 and not out["lam"] < 0:
+            raise AssertionError(f"13b {name}: lam {out['lam']} >= 0")
+        res[name] = out
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -1772,18 +2161,35 @@ def main():
     run_internal_repave_and_constraints()
     _phase("12c repave, dummies, constraints", t12)
     t12 = time.perf_counter()
+    print(f"cut: phase 12d runs {INT_QUEUE_SIZE['total']} inputs, not 512",
+          flush=True)
     run_internal_queue()
     _phase("12d served internal queue", t12)
     internal_launches = jacobi_eigh_cuda.launches
     _phase("12 internal tier", t)
 
-    # phases 10-12 run no hand-written kernel (the cell tier's prep, the
+    t = time.perf_counter()
+    jacobi_eigh_cuda.launches = 0
+    large = run_largescale_bench()
+    _phase("13a large-system path, 10,000 atoms", t)
+    t13 = time.perf_counter()
+    held = run_largescale_held()
+    _phase("13b large-system runs held to the JAX package", t13)
+    large_launches = jacobi_eigh_cuda.launches
+    t13 = time.perf_counter() - t
+    _phase("13 large-system path", t)
+    if t13 > PHASE13_MAX_S:
+        raise AssertionError(f"phase 13 took {t13:.1f} s, over its "
+                             f"{PHASE13_MAX_S} s")
+
+    # phases 10-13 run no hand-written kernel (the cell tier's prep, the
     # emt151 config and the internal tier's Gram and prep eighs use
-    # torch.linalg.eigh, as the JAX package does)
+    # torch.linalg.eigh, as the JAX package does; the large-system path's
+    # Lanczos eigh is (5, 5))
     launches = {"4": jac["jacobi_eigh_launches"],
                 "6": served["jacobi_eigh_launches"],
                 "10": cell_launches, "11": split_launches,
-                "12": internal_launches}
+                "12": internal_launches, "13": large_launches}
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh",
         "route": "cuda",
@@ -1802,6 +2208,27 @@ def main():
         "ms_f32_input": kern["ms_f32_input"],
         "ms_4096": kern["ms_4096"],
     }]}))
+    card = _card()
+    print(json.dumps({"largescale": {
+        "card": card, "natoms": large["natoms"],
+        **{k: {f: large[k][f] for f in (
+            "s_per_step", "force_ms", "hvp_ms", "hvps_per_step",
+            "host_syncs_per_step", "card_syncs_per_step", "peak_gib")}
+           for k in ("lj_binned", "lj_chunked", "binned_emt",
+                     "binned_emt_chunk", "mlff_f32")},
+        "mlff_hvp_peak_gib": {"f32": large["mlff_checks"][
+            "hvp_peak_f32_gib"], "f64": large["mlff_checks"][
+            "hvp_peak_f64_gib"]},
+        "binned_emt_hvp_peak_gib": {
+            "full": large["binned_emt_checks"]["hvp_full_gib"],
+            f"chunk{LARGE_CHUNK}": large["binned_emt_checks"][
+                "hvp_chunk_gib"]},
+        "held": {k: {f: held[k][f] for f in ("nsteps", "neval", "nmatvec",
+                                             "energy")}
+                 for k in held},
+        "jax_cpu": {k: v for k, v in JAX_LARGESCALE_REF.items()
+                    if k != "size"},
+        "tpu_v5_lite_s_per_step_not_this_card": TPU_LARGESCALE}}))
     print(json.dumps({"lj4_size": LJ4_SIZE, "lj4": {
         k: lj4[k] for k in ["converged_frac", *LJ4_COUNTS]},
         "jax_same_size": JAX_LJ4_REF, "bench_r05_full_size": LJ4_COUNTS}))

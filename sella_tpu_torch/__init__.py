@@ -1,18 +1,25 @@
 """sella_tpu_torch — the PyTorch/CUDA port of sella_tpu.
 
-The batched Cartesian RS-P-RFO saddle ensemble (``parallel.ensemble``:
-fixed batches, constraints, restarts, and the work queue with
-checkpoint/resume) and the batched atom+cell tier
-(``parallel.ensemble_cell``: fixed batches with the per-lane Niggli
-rebase, and its work queue) and the batched internal-coordinate tier
-(``parallel.ensemble_internal`` over the ``coords`` engine: redundant
-internals with dummy atoms, fixed internals, TRIC fragments, the per-lane
-repave, and its work queue with the Cartesian spill) on the EMT,
-Lennard-Jones, Morse and TIP3P potentials, optionally evaluated in float32 behind a float64 interface
-(``potentials.F32Potential``), with the P-RFO prep eigendecomposition of
-the Cartesian tier on a hand-written CUDA Jacobi kernel
-(``ops.jacobi_eigh``). It imports torch and numpy, never jax: the JAX
-package ``sella_tpu`` stays the reference the port is tested against.
+* The batched Cartesian RS-P-RFO saddle ensemble (``parallel.ensemble``:
+  fixed batches, constraints, restarts, and the work queue with
+  checkpoint/resume), its P-RFO prep eigendecomposition on a
+  hand-written CUDA Jacobi kernel (``ops.jacobi_eigh``).
+* The batched atom+cell tier (``parallel.ensemble_cell``: fixed batches
+  with the per-lane Niggli rebase, and its work queue).
+* The batched internal-coordinate tier (``parallel.ensemble_internal``
+  over the ``coords`` engine: redundant internals with dummy atoms,
+  fixed internals, TRIC fragments, the per-lane repave, and its work
+  queue with the Cartesian spill).
+* The matrix-free large-system path (``parallel.largescale``: L-BFGS
+  and Lanczos minimum-mode following) on the cell-binned O(N)
+  potentials (``BinnedPairPotential``, ``BinnedEMT``, the
+  message-passing ``MLPotential``) and the row-chunked pair panel.
+* The potentials: EMT, Lennard-Jones, Morse, harmonic, TIP3P and
+  Stillinger-Weber, optionally evaluated in float32 behind a float64
+  interface (``potentials.F32Potential``).
+
+It imports torch and numpy, never jax: the JAX package ``sella_tpu``
+stays the reference the port is tested against.
 """
 from .atoms import Atoms
 from .coords import Constraints, Internals
@@ -23,6 +30,7 @@ from .parallel import (
     EnsembleMetrics,
     InternalEnsembleConfig,
     InternalSearchState,
+    MMFState,
     SearchState,
     cells_of,
     init_cell_state,
@@ -30,6 +38,7 @@ from .parallel import (
     init_state,
     make_cell_step_fn,
     make_internal_step_fn,
+    make_mmf_step,
     make_queue_fns,
     make_step_fn,
     niggli_rebase_cell_lanes,
@@ -40,31 +49,45 @@ from .parallel import (
     run_ensemble_queue,
     run_internal_ensemble,
     run_internal_ensemble_queue,
+    run_mmf,
     summarize,
 )
 from .potentials import (
     EMT,
     TIP3P,
+    BinnedEMT,
+    BinnedPairPotential,
+    ChunkedPairPotential,
     F32Potential,
+    Harmonic,
     LennardJones,
+    MLPotential,
     MorsePotential,
+    StillingerWeber,
 )
 
 __all__ = [
     "Atoms",
+    "BinnedEMT",
+    "BinnedPairPotential",
     "CellEnsembleConfig",
     "CellSearchState",
+    "ChunkedPairPotential",
     "Constraints",
     "EMT",
     "EnsembleConfig",
     "EnsembleMetrics",
     "F32Potential",
+    "Harmonic",
     "InternalEnsembleConfig",
     "InternalSearchState",
     "Internals",
     "LennardJones",
+    "MLPotential",
+    "MMFState",
     "MorsePotential",
     "SearchState",
+    "StillingerWeber",
     "TIP3P",
     "cells_of",
     "init_cell_state",
@@ -72,6 +95,7 @@ __all__ = [
     "init_state",
     "make_cell_step_fn",
     "make_internal_step_fn",
+    "make_mmf_step",
     "make_queue_fns",
     "make_step_fn",
     "niggli_rebase_cell_lanes",
@@ -82,6 +106,7 @@ __all__ = [
     "run_ensemble_queue",
     "run_internal_ensemble",
     "run_internal_ensemble_queue",
+    "run_mmf",
     "summarize",
 ]
 

@@ -19,6 +19,9 @@ third-neighbor shell):
 Periodic systems sum over one shell of neighbor images (27 offsets),
 valid for cells with every lattice vector longer than rc (~4.8 Angstrom
 for Cu) — use a 2x2x2 conventional supercell or larger.
+
+:class:`BinnedEMT` evaluates the same physics over cell-binned candidate
+lists, O(N), for large systems.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 from ..utils.elements import symbol_to_number
 from ..utils.units import Bohr
 from .base import Potential
+from .binned import CellBins, RowChunked
 
 BETA = 1.8093997906  # (16 pi / 3)^(1/3) / sqrt(2)
 
@@ -189,6 +193,106 @@ class EMT(Potential):
         e_coh = torch.sum(E0 * ((1.0 + xl) * torch.exp(-xl) - 1.0))
         e_conv = torch.sum(6.0 * V0 * torch.exp(-kappa * ds))
 
+        return e_coh + e_conv + e_pair
+
+
+
+class BinnedEMT(RowChunked):
+    """O(N) cell-binned EMT: the large-system path for the fcc metals.
+
+    Counterpart of ``sella_tpu.potentials.emt.BinnedEMT``: the physics of
+    :class:`EMT` (its parameter buffers, in the JAX ``_arrs`` order, the
+    Fermi cutoff, and the hard candidate radius ``rc + 1.5`` A where
+    theta ~ e^-39), evaluated over :class:`~.binned.CellBins` 27-cell
+    candidate lists instead of the dense (n, n, images) panel.
+
+    Validity: for periodic systems every cell height must be
+    >= 3 (rc + 1.5) (~19.1 A for Cu), so only the nearest image of any
+    neighbor is in range; :class:`~.binned.CellBins` enforces it at
+    construction. Free clusters bin into a padded bounding box.
+
+    Capacity: the HVP graph holds ``(n, 27 * capacity)`` candidate
+    panels, so peak memory grows linearly with it. For relaxations in
+    which atoms move far less than a bin width, ``capacity ~ 1.25x`` the
+    initial occupancy (32 for close-packed Cu) is enough; overflowing
+    atoms DROP out of candidate lists (wrong energies): check
+    ``overflow_count`` after large moves. ``chunk`` evaluates the
+    gradient and HVP ``chunk`` atom rows at a time
+    (:class:`~.binned.RowChunked`).
+    """
+
+    def __init__(self, numbers, x0, cell=None, capacity=None,
+                 margin: float = 2.0, chunk=None) -> None:
+        super().__init__()
+        self._base = EMT(numbers, pbc=cell is not None)
+        self.pbc = self._base.pbc
+        self.n = self._base.n
+        self.rc = self._base.rc
+        self.acut = self._base.acut
+        # hard candidate cutoff: the dense path's mask radius
+        self.rc_list = self._base.rc + 1.5
+        self._bins = CellBins(x0, self.rc_list, cell=cell,
+                              capacity=capacity, margin=margin)
+        if self._bins.n != self.n:
+            raise ValueError(
+                f"x0 has {self._bins.n} atoms, numbers has {self.n}"
+            )
+        self.chunk = chunk
+
+    def max_occupancy(self, x) -> int:
+        return self._bins.max_occupancy(x)
+
+    def validate_cell(self, cell) -> None:
+        self._base.validate_cell(cell)
+
+    def _prepare(self, x, cell):
+        return self._bins.bucket_table(x.reshape(self.n, 3), cell)
+
+    def _rows_energy(self, x, cell, table, rows):
+        """Energy of the atoms in ``rows`` (their cohesive terms and
+        their half of the pair sum); sentinel rows contribute zero."""
+        E0, s0, V0, eta2, kappa, lam, n0, gamma1, gamma2 = (
+            getattr(self._base, k) for k in EMT.PARAM_NAMES
+        )
+        n = self.n
+        pos = x.reshape(n, 3)
+
+        # padded j-parameter arrays (pad row = 1.0, fully masked)
+        def pad(a):
+            return torch.cat([a, a.new_ones((1,))])
+
+        s0p, eta2p, kappap, n0p = (pad(a) for a in (s0, eta2, kappa, n0))
+
+        cand, r2, valid = self._bins.gather_rows(pos, cell, table, rows)
+        rows_c = torch.clamp(rows, max=n - 1)
+        real = (rows < n).to(x.dtype)
+
+        # the guard keeps grad and HVP finite through the padded entries
+        r = torch.sqrt(torch.where(valid, r2, 1.0))
+        theta = torch.sigmoid(-self.acut * (r - self.rc))
+        theta = theta * valid.to(x.dtype)
+
+        s0j, eta2j, kappaj, n0j = (a[cand] for a in (s0p, eta2p, kappap,
+                                                       n0p))
+        chi = n0j / n0[rows_c][:, None]          # chi_ij = n0_j / n0_i
+
+        w1 = chi * torch.exp(-eta2j * (r - BETA * s0j)) * theta
+        sigma1 = torch.sum(w1, dim=1) / gamma1[rows_c]
+
+        w2 = chi * torch.exp(-kappaj * (r / BETA - s0j)) * theta
+        e_pair = -0.5 * torch.sum(
+            real * V0[rows_c] * torch.sum(w2, dim=1) / gamma2[rows_c]
+        )
+
+        sigma1 = torch.clamp(sigma1, min=1e-12)
+        ds = -torch.log(sigma1 / 12.0) / (BETA * eta2[rows_c])
+        xl = lam[rows_c] * ds
+        e_coh = torch.sum(
+            real * E0[rows_c] * ((1.0 + xl) * torch.exp(-xl) - 1.0)
+        )
+        e_conv = torch.sum(
+            real * 6.0 * V0[rows_c] * torch.exp(-kappa[rows_c] * ds)
+        )
         return e_coh + e_conv + e_pair
 
 

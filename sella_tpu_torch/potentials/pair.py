@@ -1,4 +1,4 @@
-"""Pairwise torch-native potentials: Morse and Lennard-Jones.
+"""Pairwise torch-native potentials: Morse, Lennard-Jones, harmonic.
 
 Conventions match the ASE calculators (and ``sella_tpu.potentials.pair``):
 
@@ -11,6 +11,7 @@ vector, so ``torch.func`` gradients, HVPs and ``vmap`` compose directly.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .base import Potential, pair_distances
@@ -70,3 +71,25 @@ class LennardJones(Potential):
         r = pair_distances(x, cell, self.pbc)
         e = self.pair_energy(r)
         return 0.5 * torch.sum(torch.where(torch.isfinite(r), e, 0.0))
+
+
+class Harmonic(Potential):
+    """Quadratic potential around a reference point: for unit tests.
+
+    ``E = 0.5 (x - x0)^T K (x - x0) + g0^T (x - x0)``; exact Hessian K.
+    ``x0``, ``K`` and ``g0`` are float64 buffers."""
+
+    def __init__(self, x0, K, g0=None) -> None:
+        super().__init__()
+        x0 = torch.as_tensor(np.asarray(x0, dtype=np.float64))
+        self.register_buffer("x0", x0)
+        self.register_buffer("K", torch.as_tensor(np.asarray(
+            K, dtype=np.float64)))
+        self.register_buffer("g0", torch.zeros_like(x0) if g0 is None
+                             else torch.as_tensor(np.asarray(
+                                 g0, dtype=np.float64)))
+        self.pbc = False
+
+    def energy(self, x, cell):
+        dx = x - self.x0
+        return 0.5 * dx @ self.K @ dx + self.g0 @ dx

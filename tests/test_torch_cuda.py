@@ -1,8 +1,10 @@
 """GPU tests of the port: the CUDA Jacobi kernel against its plain
 version, one ensemble step (Cartesian and atom+cell) on the card against
 the same step on the CPU, ``F32Potential`` on the card, the internal
-tier's state on the card and its ``"robust"`` Gram eigh. They skip
-without a CUDA device.
+tier's state on the card and its ``"robust"`` Gram eigh, and the
+large-system path: the binned, chunked and ML potentials and
+``run_mmf`` on the card against the CPU. They skip without a CUDA
+device.
 
 This file imports neither jax nor the JAX package, so it runs on a GPU
 host without them:
@@ -410,3 +412,100 @@ def test_robust_eigh_of_degenerate_gram_on_the_card(cuda):
     assert float(res.max()) <= 1e-12
     eye = torch.eye(G.shape[1], dtype=G.dtype, device=cuda)
     assert float((V.transpose(1, 2) @ V - eye).abs().max()) <= 1e-12
+
+
+def _slab_10():
+    from sella_tpu_torch.potentials import fcc111_slab
+
+    slab = fcc111_slab("Cu", 3.59, size=(8, 10, 4), vacuum=12.0)
+    rng = np.random.RandomState(7)
+    x = (slab.positions + 0.05 * rng.normal(size=slab.positions.shape)
+         ).ravel()
+    return x, np.asarray(slab.cell), rng.normal(size=x.shape)
+
+
+@pytest.mark.parametrize("name", ["binned_lj", "chunked_lj", "binned_emt",
+                                  "binned_emt_chunk", "mlff", "mlff_f32"])
+def test_large_system_potentials_card_match_cpu(cuda, name):
+    """Energy, gradient and HVP of each large-system potential on a
+    rattled 320-atom Cu(111) slab: the card against the CPU, float64 to
+    1e-10 relative, float32 to 1e-4; no bin overflows on the card."""
+    from sella_tpu_torch.potentials import (BinnedEMT, BinnedPairPotential,
+                                            ChunkedPairPotential,
+                                            F32Potential, LennardJones,
+                                            MLPotential)
+    from sella_tpu_torch.potentials.mlff import WEIGHTS_CU_EMT
+
+    x, cell, v = _slab_10()
+    z = [29] * (x.size // 3)
+    lj = LennardJones(sigma=2.3, epsilon=0.4, rc=5.5, pbc=True)
+    pot = {
+        "binned_lj": lambda: BinnedPairPotential(lj, rc=5.5, x0=x,
+                                                 cell=cell, shift=False),
+        "chunked_lj": lambda: ChunkedPairPotential(lj, chunk=100),
+        "binned_emt": lambda: BinnedEMT(z, x, cell, capacity=32),
+        "binned_emt_chunk": lambda: BinnedEMT(z, x, cell, capacity=32,
+                                              chunk=100),
+        "mlff": lambda: MLPotential(z, x, cell, rc=4.5, capacity=24,
+                                    params=MLPotential.params_from_npz(
+                                        WEIGHTS_CU_EMT)),
+    }
+    f32 = name == "mlff_f32"
+    pot = pot["mlff" if f32 else name]()
+    if f32:
+        pot = F32Potential(pot)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = pot.to(dev)
+        xd, cd, vd = (torch.as_tensor(a, device=dev) for a in (x, cell, v))
+        e, g = p.energy_and_grad(xd, cd)
+        out[str(dev)] = [t.cpu() for t in (e, g, p.hvp(xd, vd, cd))]
+        bins = getattr(getattr(p, "_inner32", p), "_bins", None)
+        if bins is not None:
+            assert int(bins.overflow_count(xd.reshape(-1, 3), cd)) == 0
+    tol = 1e-4 if f32 else 1e-10
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_run_mmf_card_matches_cpu(cuda, order):
+    """``run_mmf`` on the card: order 0 on the binned EMT slab, order 1
+    (LJ7 from an injected mode) through ``drive_mmf``; every state field
+    stays on the card, a numpy x0 lands there, and the run matches the
+    CPU's counts with x within 1e-6 (the saddle search carries a
+    last-bit difference to ~5e-7: a jitted JAX init against an eager
+    one moves the JAX package's own run that far)."""
+    import sella_tpu_torch.parallel.largescale as L
+    from sella_tpu_torch.potentials import BinnedEMT, LennardJones
+
+    if order == 0:
+        x, cell, _ = _slab_10()
+        pot = BinnedEMT([29] * (x.size // 3), x, cell, capacity=32)
+        kw = dict(order=0, fmax=1e-2, max_steps=100, max_move=0.2)
+        st = L.run_mmf(pot.to(cuda), x, cell=cell, **kw)
+        ref = L.run_mmf(pot.to("cpu"), x, cell=cell, device="cpu", **kw)
+    else:
+        pos = np.array([
+            [0.0, 0.0, 1.1], [0.0, 0.0, -1.1], [1.12, 0.0, 0.0],
+            *[[1.12 * np.cos(2 * np.pi * k / 5),
+               1.12 * np.sin(2 * np.pi * k / 5), 0] for k in range(1, 5)],
+        ]) * 0.9
+        x = (pos + 0.15 * np.random.RandomState(5).normal(size=pos.shape)
+             ).ravel()
+        v0 = np.random.RandomState(0).normal(size=21)
+        v0 /= np.linalg.norm(v0)
+        runs = []
+        for dev in (cuda, "cpu"):
+            step = L.make_mmf_step(LennardJones(), None, order=1)
+            s0 = L.mmf_init(LennardJones(), x, device=dev)._replace(
+                mode=torch.as_tensor(v0, device=dev))
+            runs.append(L.drive_mmf(step, s0, max_steps=800))
+        st, ref = runs
+        assert float(st.lam) < 0
+    assert bool(st.converged) and bool(ref.converged)
+    assert all(t.device.type == "cuda" for t in [*st[:5], *st[6:], *st.mem])
+    assert (int(st.nsteps), int(st.nmatvec)) == (int(ref.nsteps),
+                                                 int(ref.nmatvec))
+    np.testing.assert_allclose(st.x.cpu().numpy(), ref.x.numpy(), atol=1e-6)

@@ -5,8 +5,11 @@ A fresh interpreter with ``sys.modules['jax'] = None`` (so any
 ``pkgutil``), drives two LJ4 steps of the ensemble, a two-input work
 queue with a checkpoint, two steps of the atom+cell tier on periodic LJ,
 one ``F32Potential`` gradient, two steps of the internal-coordinate tier
-(the state round-tripped through ``interop``) and a two-input internal
-queue.
+(the state round-tripped through ``interop``), a two-input internal
+queue, and the large-system path: an order-0 ``run_mmf`` on a binned LJ
+block, an order-1 step on the committed MLFF weights (the state
+round-tripped through ``interop``), ``BinnedEMT`` and
+Stillinger-Weber energies.
 """
 import os
 import subprocess
@@ -37,7 +40,11 @@ assert {'sella_tpu_torch.parallel.checkpoint',
         'sella_tpu_torch.coords.constraints',
         'sella_tpu_torch.coords.topology', 'sella_tpu_torch.coords.internals',
         'sella_tpu_torch.parallel.ensemble_internal',
-        'sella_tpu_torch.potentials.tip3p'} <= set(mods), mods
+        'sella_tpu_torch.potentials.tip3p',
+        'sella_tpu_torch.potentials.binned',
+        'sella_tpu_torch.potentials.sharded',
+        'sella_tpu_torch.potentials.mlff', 'sella_tpu_torch.potentials.sw',
+        'sella_tpu_torch.parallel.largescale'} <= set(mods), mods
 from sella_tpu_torch import (EnsembleConfig, LennardJones, run_ensemble,
                              run_ensemble_queue, summarize)
 x0 = np.array([[0, 0, 0, 1, 0, 0, .5, .87, 0, .5, .29, .82]]) * 1.12
@@ -89,6 +96,34 @@ ires = run_internal_ensemble_queue(
     icfg._replace(order=0, eig=False), batch=1, max_steps_per_search=4,
     refill_every=2, spill=None, device='cpu')
 assert len(ires) == 2 and all(len(r) == 6 for r in ires), ires
+from sella_tpu_torch import (BinnedEMT, BinnedPairPotential, MLPotential,
+                             StillingerWeber, make_mmf_step, run_mmf)
+from sella_tpu_torch.interop import mmf_state_from_numpy, mmf_state_to_numpy
+from sella_tpu_torch.parallel.largescale import mmf_init
+from sella_tpu_torch.potentials import fcc111_slab, si_diamond
+from sella_tpu_torch.potentials.mlff import WEIGHTS_CU_EMT
+blk = (fcc_bulk('Cu', 1.56, reps=(2, 2, 2)).positions
+       + 0.05 * np.random.RandomState(8).normal(size=(32, 3))).ravel()
+ms = run_mmf(BinnedPairPotential(LennardJones(rc=2.5), rc=2.5, x0=blk,
+                                 shift=False), blk, order=0, fmax=1e-2,
+             max_steps=100, device='cpu')
+assert bool(ms.converged), int(ms.nsteps)
+slab = fcc111_slab('Cu', 3.59, size=(8, 10, 4), vacuum=12.0)
+xs, cs = slab.positions.ravel(), slab.cell
+xc = fcc_bulk('Cu', 3.59, reps=(2, 2, 2)).positions.ravel()
+ml = MLPotential([29] * 32, xc, None, rc=4.5,
+                 params=MLPotential.params_from_npz(WEIGHTS_CU_EMT))
+m1 = make_mmf_step(ml, None, order=1, mode_iter=2)(
+    mmf_init(ml, xc, device='cpu'))
+assert int(m1.nsteps) == 1 and bool(torch.isfinite(m1.x).all())
+back = mmf_state_from_numpy(mmf_state_to_numpy(m1), device='cpu')
+assert torch.equal(back.x, m1.x) and torch.equal(back.mem.S, m1.mem.S)
+eb = BinnedEMT([29] * 320, xs, cs).energy(torch.as_tensor(xs),
+                                          torch.as_tensor(cs))
+si = si_diamond()
+esw = StillingerWeber(pbc=True).energy(torch.as_tensor(si.positions.ravel()),
+                                       torch.as_tensor(si.cell))
+assert bool(torch.isfinite(eb)) and float(esw) < 0
 bad = [m for m in sys.modules
        if (m == 'jax' or m.startswith(('jax.', 'jaxlib', 'sella_tpu.')) or
            m == 'sella_tpu') and sys.modules[m] is not None]

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The JAX package's results on the configurations of ``chip_smoke.py``
-phases 7, 8 and 12, computed on the CPU.
+phases 7, 8, 12 and 13b, computed on the CPU.
 
 The card's host has no JAX, so ``chip_smoke.py`` holds the port to the
 numbers this script prints: one JSON line, ``{"JAX_LJ4_REF": ...,
-"JAX_CONSTRAINT_REF": ..., "JAX_INTERNAL_REF": ...}``, whose values are
+"JAX_CONSTRAINT_REF": ..., "JAX_INTERNAL_REF": ...,
+"JAX_LARGESCALE_REF": ...}``, whose values are
 copied over the constants of those names. Each carries the sizes it was
 computed at under ``"size"``, and ``chip_smoke.py`` raises when its own
 sizes differ:
@@ -18,10 +19,16 @@ sizes differ:
 * phase 12: the bench's internal Xe4 config at ``chip_smoke.
   INTERNAL_SIZE`` (12a), the dummy-atom and fixed-bond configs at
   ``INT_CONS_SIZE`` (12c) and the served internal queue at
-  ``INT_QUEUE_SIZE`` (12d), each with its converged share and counts.
+  ``INT_QUEUE_SIZE`` (12d), each with its converged share and counts;
+* phase 13b: the three large-system runs of ``chip_smoke.
+  LARGESCALE_RUNS`` (the LJ7 saddle from the injected numpy mode, the
+  Cu slab and the 1024-atom binned-EMT minimizations) through the JAX
+  ``run_mmf`` loop: steps, force calls, HVPs and the final energy, under
+  ``"size"`` the whole ``LARGESCALE_RUNS``.
 
 Run from the repository root (about ten minutes on one CPU; ``--only
-internal`` or ``--only cartesian`` computes one of the two groups):
+internal``, ``--only cartesian`` or ``--only largescale`` computes one
+of the groups, the last in about a minute):
 
     JAX_PLATFORMS=cpu python3 tools/jax_reference_counts.py
 """
@@ -203,6 +210,48 @@ def internal():
             "queue": internal_queue()}
 
 
+def largescale():
+    """Phase 13b's runs: ``run_mmf`` of the JAX package (its host loop,
+    sella_tpu/parallel/largescale.py:287-305) from ``mmf_init``, the LJ7
+    saddle's mode replaced by ``chip_smoke.lj7_start``'s numpy draw."""
+    from sella_tpu.parallel import largescale as L
+    from sella_tpu.potentials import BinnedEMT, EMT as JEMT
+
+    out = {"size": cs.LARGESCALE_RUNS}
+    for name, cfg in cs.LARGESCALE_RUNS.items():
+        if name == "lj7_saddle":
+            x0, v0 = cs.lj7_start()
+            pot, cell = LennardJones(), None
+            state = L.mmf_init(pot, jnp.asarray(x0))._replace(
+                mode=jnp.asarray(v0))
+        else:
+            x0, cell_np = cs.rattled_slab(name)
+            z = np.array([29] * (x0.size // 3))
+            cell = jnp.asarray(cell_np)
+            pot = JEMT(z, pbc=True) if name == "cu_slab_min" \
+                else BinnedEMT(z, x0, cell_np)
+            state = L.mmf_init(pot, jnp.asarray(x0), cell)
+        step = L.make_mmf_step(pot, cell, cfg["order"], cfg["fmax"],
+                               cfg["max_move"])
+
+        def multi(s, step=step):
+            return jax.lax.fori_loop(0, 25, lambda i, st: jax.lax.cond(
+                st.converged, lambda t: t, step, st), s)
+
+        multi = jax.jit(multi)
+        for _ in range(cfg["max_steps"] // 25 + 1):
+            state = multi(state)
+            if bool(state.converged) or \
+                    int(state.nsteps) >= cfg["max_steps"]:
+                break
+        out[name] = {"converged": bool(state.converged),
+                     "nsteps": int(state.nsteps),
+                     "neval": int(state.neval),
+                     "nmatvec": int(state.nmatvec),
+                     "energy": float(state.f), "lam": float(state.lam)}
+    return out
+
+
 if __name__ == "__main__":
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
         else None
@@ -212,4 +261,6 @@ if __name__ == "__main__":
                    JAX_CONSTRAINT_REF=constraints())
     if only in (None, "internal"):
         out["JAX_INTERNAL_REF"] = internal()
+    if only in (None, "largescale"):
+        out["JAX_LARGESCALE_REF"] = largescale()
     print(json.dumps(out))
