@@ -13,16 +13,18 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
 2. kernel vs plain: the CUDA Jacobi eigh against its plain PyTorch
    version and float64 ``eigvalsh`` on the same card (even, odd and
    largest n, more than two waves of blocks, a non-contiguous float64
-   view, repeat launches bit for bit), with its timing beside the plain
-   version, ``torch.linalg.eigh`` and the card's bound;
+   view, phase 16a's n = 6 and 15, repeat launches bit for bit), with
+   its timing beside the plain version, ``torch.linalg.eigh`` and the
+   card's bound;
 3. potential: EMT energy, gradient and HVP on the card against a CPU copy;
 4. the slice: the headline ensemble (Cu(111) 3x4x2 slab + adatom, 1024
-   lanes, fmax 1e-3) with ``prfo_eigh="jacobi"``, counting kernel launches;
+   lanes, fmax 1e-3) with ``prfo_eigh="jacobi"``, counting kernel launches
+   (its final state feeds phase 15);
 5. the same headline with the benchmark's own ``prfo_eigh="eigh"``, at
    256 lanes (cut for time);
 6. the served EMT headline: 2048 starts (cut from 4096 for time) through
    a 1024-lane work queue (``run_ensemble_queue``, fmax 0.02) with
-   ``prfo_eigh="jacobi"``;
+   ``prfo_eigh="jacobi"``, gated on at least one refill;
 7. the LJ4 composite queue: a 1024-lane fast phase with retries and a
    drain handoff, then a 128-lane tail, with the stagnation/dissociation
    restarts and the ``conv_inertia`` gate, and an inertia census of the
@@ -52,8 +54,8 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
     near-linear lanes at 256 lanes and the dummy-atom and fixed-bond
     configs at 1024 lanes; (d) the served internal queue with the
     Cartesian spill, a checkpoint and a resume (256 inputs through 128
-    lanes, cut from 512 for time). 12a, 12c and 12d are
-    held to the JAX package's runs at the same sizes;
+    lanes, cut from 512 for time, gated on at least one refill). 12a,
+    12c and 12d are held to the JAX package's runs at the same sizes;
 13. the large-system path: (a) the bench's largescale block at 10,000
     atoms (a Cu(111) 50x50x4 slab): matrix-free MMF through binned and
     row-chunked LJ (order 0, held to each other), ``BinnedEMT`` (order
@@ -62,14 +64,41 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
     each with s/step, force and HVP times, HVPs and host syncs per step,
     peak memory and no bin overflow; (b) an LJ7 saddle, a Cu slab and a
     1024-atom binned-EMT minimization held to the JAX package's counts
-    and energies.
+    and energies;
+14. the internal+cell tier: (a) phase 10's bulk Cu EMT system in 192
+    redundant bonds + 9 cell parameters (nz = 201), order 0, fmax 1e-3,
+    at 8 lanes (cut from 64 for time) until every lane converges, with
+    the Gram eigh's, the Newton back-transform's and the restricted
+    step's CUDA-event times and the Newton iterations and host syncs a
+    step; (b) ``run_cell_internal_ensemble`` with its Niggli rebase and
+    its repave, ``run_cell_internal_ensemble_queue`` and one
+    ``rigid_fragments=True`` run on the configs of the JAX package's
+    tests, at step caps; all held to the JAX package's runs;
+15. batched IRC: (a) both directions from the first 128 converged
+    transition states of phase 4 (256 paths through a 256-lane queue,
+    Cu masses), every endpoint a minimum below its TS, the first 8 TSs'
+    paths run again on the CPU; (b) the IRC stage of
+    examples/04_irc_pipeline.py from the JAX run's transition states,
+    held to the JAX package's counts and energies;
+16. the heterogeneous queue: (a) 256 LJ4 + 256 LJ7 starts drawn as
+    examples/09_heterogeneous_sweep.py draws them through 128-lane
+    queues (cut from 512 + 512 through 256 lanes for time), order 0,
+    with ``prfo_eigh="jacobi"`` (the kernel at n = 6 and 15), held per
+    bucket to the JAX package's run and gated on a refill in each
+    bucket; (b) the example's internal campaign, every result equal to
+    its bucket's direct ``run_internal_ensemble_queue``.
 
-The JAX package's numbers for phases 7, 8, 12 and 13b come from
-``tools/jax_reference_counts.py`` (run on a CPU; the card's host has no
-JAX); phases 10-13 print the JAX package's TPU figures beside their own.
-The last four lines of standard output are the kernels' JSON record, the
-large-system summary, the LJ4 summary and ``{"ok": true, "device":
-{...}}``.
+Phases 13, 14, 15 and 16 and phases 1-16 together are gated on their
+budgets in seconds.
+
+The JAX package's numbers for phases 7, 8, 12, 13b, 14, 15b and 16a come
+from ``tools/jax_reference_counts.py`` (run on a CPU; the card's host has
+no JAX); phases 10-13 print the JAX package's TPU figures beside their
+own. The last seven lines of standard output are the kernels' JSON
+record, the large-system summary, the batched-tier summary (14a, 15a and
+16a beside the JAX package's counts, and the gated phases' times beside
+their budgets), the LJ4 summary, the card's name and power limit, and ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -196,6 +225,40 @@ def _sync_for(dev):
             else (lambda: None))
 
 
+class _Refills:
+    """Counts, by lane width, the refills a work queue makes while in
+    the ``with`` block (a queue refills only when a lane reloads a fresh
+    input), by wrapping ``module.name``; ``require(what)`` raises unless
+    every width refilled at least once."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.by_dim: dict = {}
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.module, self.name)
+
+        def counted(state, *a, **k):
+            d = int(state.x.shape[1])
+            self.by_dim[d] = self.by_dim.get(d, 0) + 1
+            return inner(state, *a, **k)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+    def require(self, what, dims=None):
+        for d in (dims if dims is not None else [None]):
+            n = (sum(self.by_dim.values()) if d is None
+                 else self.by_dim.get(d, 0))
+            if n == 0:
+                where = "" if d is None else f" (dim {d})"
+                raise AssertionError(f"{what}: the queue never refilled a "
+                                     f"lane{where}")
+
+
 def headline_setup(batch, seed=0):
     """The bench headline system (bench.py:225-246): Cu(111) 3x4x2 slab
     plus one adatom nudged off the fcc hollow, 25 atoms; ``batch`` starts
@@ -311,6 +374,12 @@ def phase_kernel():
         "waves_1500x72": _rand_sym(1500, 72, 6),
         # what the step hands the kernel: float64 through strides
         "view_16x72": _rand_sym(16, 80, 7),
+        # what phase 16a's buckets hand it: the LJ4 and LJ7 free
+        # subspaces (n = 3 * natoms - 6) at the queue's lanes
+        f"hetero_{HETERO_SIZE['batch']}x6": _rand_sym(
+            HETERO_SIZE["batch"], 6, 9),
+        f"hetero_{HETERO_SIZE['batch']}x15": _rand_sym(
+            HETERO_SIZE["batch"], 15, 10),
     }
     max_abs_err = 0.0
     for name, A_np in cases.items():
@@ -410,8 +479,9 @@ def phase_potential():
             raise AssertionError(f"EMT {name} on the card disagrees")
 
 
-def run_headline(prfo_eigh, dev="cuda:0", batch=1024):
-    """The headline ensemble on ``dev``; returns its stats."""
+def run_headline(prfo_eigh, dev="cuda:0", batch=1024, keep_state=False):
+    """The headline ensemble on ``dev``; returns its stats (and with
+    ``keep_state`` its final state too)."""
     from sella_tpu_torch import run_ensemble
     from sella_tpu_torch.ops.jacobi_eigh import jacobi_eigh_cuda
     from sella_tpu_torch.parallel.ensemble import _batched_eval, free_basis
@@ -472,7 +542,7 @@ def run_headline(prfo_eigh, dev="cuda:0", batch=1024):
     if stats["converged_frac"] < CONV_FRAC_MIN:
         raise AssertionError(f"converged_frac {stats['converged_frac']} < "
                              f"{CONV_FRAC_MIN}")
-    return stats
+    return (stats, state) if keep_state else stats
 
 
 class _SnapshotClock:
@@ -538,7 +608,8 @@ def run_queue_headline(dev="cuda:0", batch=1024, total=4096):
     (rows batch..batch+total of the bench's start set) through a
     ``batch``-lane queue at fmax 0.02, harvested every 5 steps, with
     ``prfo_eigh="jacobi"`` (the bench's is ``"eigh"``) so that the kernel
-    serves the queue."""
+    serves the queue; gated on at least one refill."""
+    import sella_tpu_torch.parallel.ensemble as ens
     from sella_tpu_torch import EnsembleConfig, make_queue_fns, \
         run_ensemble_queue
     from sella_tpu_torch.ops.jacobi_eigh import jacobi_eigh_cuda
@@ -558,9 +629,10 @@ def run_queue_headline(dev="cuda:0", batch=1024, total=4096):
     sync()
     jacobi_eigh_cuda.launches = 0
     t = time.perf_counter()
-    results = run_ensemble_queue(
-        pot, x0_all[batch:], cfg, batch, max_steps_per_search=80,
-        cell=cell_t, refill_every=5, fns=fns, device=dev)
+    with _Refills(ens, "refill_converged") as refills:
+        results = run_ensemble_queue(
+            pot, x0_all[batch:], cfg, batch, max_steps_per_search=80,
+            cell=cell_t, refill_every=5, fns=fns, device=dev)
     sync()
     wall = time.perf_counter() - t
     launches = jacobi_eigh_cuda.launches
@@ -570,7 +642,8 @@ def run_queue_headline(dev="cuda:0", batch=1024, total=4096):
     stats = {"batch": batch, "total": total, "prfo_eigh": cfg.prfo_eigh,
              **_queue_means(results), "wall_s": wall,
              "searches_per_s": sum(r[3] for r in results) / wall,
-             **clock.stats(), "jacobi_eigh_launches": launches}
+             **clock.stats(), "refills": sum(refills.by_dim.values()),
+             "jacobi_eigh_launches": launches}
     conv = [r for r in results if r[3]]
     if conv:
         xs = torch.as_tensor(np.stack([r[0] for r in conv]), device=dev)
@@ -585,6 +658,7 @@ def run_queue_headline(dev="cuda:0", batch=1024, total=4096):
                              f"{stats['converged_frac']} < {CONV_FRAC_MIN}")
     if dev.type == "cuda" and launches == 0:
         raise AssertionError("the served headline never launched the kernel")
+    refills.require("the served headline")
     return stats
 
 
@@ -1621,9 +1695,9 @@ def run_internal_queue(dev="cuda:0", batch=INT_QUEUE_SIZE["batch"],
     """12d: ``run_internal_ensemble_queue`` on 12a's config with
     ``spill="cartesian"`` and a checkpoint every cycle, then one resume
     from the checkpoint written at 80% of the cycles; the full run held
-    to the JAX package's run at this size, and the resumed run finishing
-    every input, with the converged results harvested before the
-    checkpoint unchanged."""
+    to the JAX package's run at this size and gated on at least one
+    refill, and the resumed run finishing every input, with the converged
+    results harvested before the checkpoint unchanged."""
     import os
     import shutil
     import tempfile
@@ -1652,9 +1726,10 @@ def run_internal_queue(dev="cuda:0", batch=INT_QUEUE_SIZE["batch"],
         ckpt.save_queue = keep
         t = time.perf_counter()
         try:
-            full = run_internal_ensemble_queue(
-                pot.to(dev), ints, x0, cfg,
-                checkpoint_path=os.path.join(tmp, "q.pt"), **kw)
+            with _Refills(TE, "refill_converged_internal") as refills:
+                full = run_internal_ensemble_queue(
+                    pot.to(dev), ints, x0, cfg,
+                    checkpoint_path=os.path.join(tmp, "q.pt"), **kw)
         finally:
             ckpt.save_queue = orig
         wall = time.perf_counter() - t
@@ -1676,6 +1751,7 @@ def run_internal_queue(dev="cuda:0", batch=INT_QUEUE_SIZE["batch"],
     stats.update(batch=batch, total=total, wall_s=wall,
                  searches_per_s=sum(r[3] for r in full) / wall,
                  cycles=len(saved), harvested_at_resume=len(done_mid),
+                 refills=sum(refills.by_dim.values()),
                  resume_wall_s=wall_resume,
                  resumed=int_stats([r[2] for r in resumed],
                                    [r[4] for r in resumed],
@@ -1686,7 +1762,9 @@ def run_internal_queue(dev="cuda:0", batch=INT_QUEUE_SIZE["batch"],
             and 0 < len(done_mid) < total):
         raise AssertionError("the resumed internal queue lost or changed "
                              "harvested inputs")
-    _hold_to_jax("queue", stats, dict(INT_QUEUE_SIZE))
+    refills.require("12d")
+    _hold_to_jax("queue", stats,
+                 dict(INT_QUEUE_SIZE, batch=batch, total=total))
     return stats
 
 
@@ -1757,8 +1835,13 @@ JAX_LARGESCALE_REF = {
                        "lam": 0.0}}
 LARGESCALE_COUNTS_RTOL = 0.05
 LARGESCALE_E_ATOL = 1e-5
-# phase 13's share of the script's time
+# the seconds phases 13, 14, 15 and 16 and phases 1-16 together may take
+# (each gated)
 PHASE13_MAX_S = 150
+PHASE14_MAX_S = 150
+PHASE15_MAX_S = 60
+PHASE16_MAX_S = 50
+PHASES_MAX_S = 1000
 # the JAX package's bench block on a TPU v5 lite (BENCH_r04.json), s/step:
 # printed beside 13a, not compared, and not the port's goals
 TPU_LARGESCALE = {"binned": 1.491, "chunked": 3.236, "binned_emt": 1.66,
@@ -2066,6 +2149,784 @@ def run_largescale_held(dev="cuda:0"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the internal+cell tier
+# ---------------------------------------------------------------------------
+# 14a: phase 10's system (bench.py:1085-1096, BASELINE config 3) in
+# internal coordinates + cell, at CELL_INT_SIZE lanes. Cut from phase 10's
+# 512 for time: every step runs the full-Newton back-transform to its 20
+# iterations (the residual of a redundant-internal target stalls above
+# newton_tol), each with a float64 (B, 192, 192) Gram eigh on cuSOLVER,
+# ~1.5 ms a matrix, and the slowest lane needs ~220 steps
+CELL_INT_SIZE = {"batch": 8, "max_steps": 250}
+CELL_INT_COUNTS = ("mean_steps_converged", "mean_force_calls")
+CELL_INT_COUNTS_RTOL = 0.05
+# 14b: the other entry points on the configs of
+# tests/test_cell_internal_events.py and tests/test_ensemble_cell_internal.py
+# at a step cap each (cut for time: the Niggli run's lanes need 153 and
+# 196 steps there), held to the JAX package's runs of the same caps lane by
+# lane: steps, force calls and converged flags equal, energies within
+# CELL_INT_F_ATOL
+CELL_INT_EVENTS = {"niggli_steps": 30, "repave_steps": 60,
+                   "queue_total": 4, "queue_batch": 2, "queue_steps": 10,
+                   "rigid_steps": 10}
+CELL_INT_F_ATOL = 1e-6
+# the JAX package at the sizes above (tools/jax_reference_counts.py, CPU)
+JAX_CELL_INT_REF = {
+    "headline": {"size": {"batch": 8, "max_steps": 250},
+                 "converged_frac": 1.0,
+                 "mean_steps_converged": 148.125,
+                 "mean_force_calls": 149.125, "steps_run": 220},
+    "events": {
+        "size": {"niggli_steps": 30, "repave_steps": 60, "queue_total": 4,
+                 "queue_batch": 2, "queue_steps": 10, "rigid_steps": 10},
+        "niggli": {"nsteps": [30, 30], "neval": [31, 32],
+                   "converged": [False, False],
+                   "f": [-103.47293447561033, -103.45065802359201]},
+        "repave": {"nsteps": [12, 46], "neval": [13, 47],
+                   "converged": [True, True],
+                   "f": [-5.967123348901013, -5.967123349033134]},
+        "queue": {"nsteps": [10, 10, 10, 10],
+                  "converged": [False, False, False, False],
+                  "f": [-219.66692486803487, -219.5741608950356,
+                        -219.26652838628527, -218.8831513263739]},
+        "rigid": {"nsteps": [10, 10], "neval": [11, 11],
+                  "converged": [False, False],
+                  "f": [0.19422328867046396, 0.2523624943719858]}}}
+
+
+def cell_int_setup(batch):
+    """14a: phase 10's bulk Cu EMT system (``cell_setup``) with its
+    redundant-internal topology: every bond at the default scale (192
+    with the periodic images), nz = 192 + 9."""
+    from sella_tpu_torch import Internals
+    from sella_tpu_torch.potentials import fcc_bulk
+
+    pot, x0, s0, cell0, nat = cell_setup(batch)
+    ints = Internals(fcc_bulk("Cu", 3.59 * 1.03, reps=(2, 2, 2)))
+    ints.find_all_bonds()
+    return pot, ints, x0, s0, cell0, nat
+
+
+def cell_int_config(ints):
+    """14a's config: order 0, fmax 1e-3, the full cell mask, the JAX
+    package's defaults otherwise."""
+    from sella_tpu_torch import CellInternalEnsembleConfig
+
+    return CellInternalEnsembleConfig(natoms=ints.natoms, nint=ints.nint,
+                                      ncell=9, order=0, fmax=1e-3)
+
+
+def _hold_counts(name, stats, ref_all, size, keys, rtol):
+    if ref_all is None or ref_all[name]["size"] != size:
+        raise AssertionError(f"no JAX reference for {name} at {size}; rerun "
+                             "tools/jax_reference_counts.py")
+    ref = ref_all[name]
+    for k in keys:
+        if abs(stats[k] - ref[k]) > rtol * ref[k]:
+            raise AssertionError(f"{name} {k} = {stats[k]} is more than "
+                                 f"{rtol:.0%} from JAX's {ref[k]}")
+
+
+def run_cell_internal_headline(dev="cuda:0", batch=CELL_INT_SIZE["batch"],
+                               max_steps=CELL_INT_SIZE["max_steps"],
+                               cell_stats=None):
+    """14a: the bench's atom+cell system in internal coordinates + cell,
+    ``make_cell_internal_step_fn`` driven until every lane converges (a
+    convergence read every 10 steps, as ``run_cell_internal_ensemble``
+    with ``steps_per_call=10``), with the Gram eigh's, the Newton
+    back-transform's and the restricted step's CUDA-event times and the
+    Newton iterations and host syncs per step."""
+    import sella_tpu_torch.parallel.ensemble_internal as TE
+    from sella_tpu_torch.parallel import ensemble_cell_internal as TC
+
+    dev = torch.device(dev)
+    pot, ints, x0, s0, cell0, nat = cell_int_setup(batch)
+    cfg = cell_int_config(ints)
+    pot = pot.to(dev)
+    sync = _sync_for(dev)
+    step = TC.make_cell_internal_step_fn(pot, ints, cfg)
+    state = TC.init_cell_internal_state(pot, ints, x0, cfg, cell0, s0=s0,
+                                        device=dev)
+    TE.SPANS = {} if dev.type == "cuda" else None
+    sync()
+    t = time.perf_counter()
+    steps = 0
+    try:
+        while steps < max_steps:
+            for _ in range(min(10, max_steps - steps)):
+                state = step(state)
+                steps += 1
+            if bool(state.converged.all()):
+                break
+        sync()
+        wall = time.perf_counter() - t
+        spans = TE.span_ms(TE.SPANS) if TE.SPANS is not None else {}
+    finally:
+        TE.SPANS = None
+    for name, tns in zip(state._fields, state):
+        if tns.device != dev:
+            raise AssertionError(f"cell-internal state.{name} is on "
+                                 f"{tns.device}")
+        if tns.is_floating_point() and not bool(torch.isfinite(tns).all()):
+            raise AssertionError(f"cell-internal state.{name} is not finite")
+    conv = state.converged
+    nconv = int(conv.sum())
+    cells = TC.realized_cells(state, cfg)[conv].cpu().numpy()
+    lat = np.linalg.norm(cells, axis=2) / 2.0       # 2x2x2 supercell
+    ortho = cells @ np.swapaxes(cells, 1, 2)
+    off = np.abs(ortho - ortho * np.eye(3)).max(axis=(1, 2))
+    stats = {
+        "batch": batch, "nint": cfg.nint, "nz": cfg.nz,
+        "converged_frac": nconv / batch, "steps_run": steps,
+        "mean_steps_converged": (float(state.nsteps[conv].double().mean())
+                                 if nconv else None),
+        "mean_force_calls": float(state.neval.double().mean()),
+        "wall_s": wall, "s_per_step": wall / max(steps, 1),
+        "searches_per_s": nconv / wall,
+        "newton_iters_per_step": step.newton_iters / max(steps, 1),
+        "host_syncs_per_step": step.host_syncs / max(steps, 1),
+        "span_ms_per_step": {k: v / max(steps, 1) for k, v in spans.items()},
+        "span_share": {k: v / (1e3 * wall) for k, v in spans.items()},
+        "lattice_max_dev": (float(np.abs(lat - CELL_LATTICE_A).max())
+                            if nconv else None),
+        "offdiag_CCt_max": float(off.max()) if nconv else None,
+    }
+    if cell_stats is not None:
+        stats["cartesian_cell_phase10"] = {
+            k: cell_stats.get(k) for k in ("batch", "mean_steps_converged",
+                                           "mean_force_calls", "s_per_step")}
+    if dev.type == "cuda":
+        stats["card"] = _card()
+    print(json.dumps(stats), flush=True)
+    if stats["converged_frac"] < CONV_FRAC_MIN:
+        raise AssertionError(f"14a converged_frac {stats['converged_frac']} "
+                             f"< {CONV_FRAC_MIN}")
+    if not (stats["lattice_max_dev"] < 0.01
+            and stats["offdiag_CCt_max"] < 0.05):
+        raise AssertionError("a relaxed 14a cell misses the EMT lattice: "
+                             f"{stats['lattice_max_dev']}, "
+                             f"{stats['offdiag_CCt_max']}")
+    _hold_counts("headline", stats, JAX_CELL_INT_REF,
+                 {"batch": batch, "max_steps": max_steps}, CELL_INT_COUNTS,
+                 CELL_INT_COUNTS_RTOL)
+    return stats
+
+
+R0_LJ = 2.0 ** (1.0 / 6.0)
+
+
+def ci_lj_bulk(total, seed=0, a0=1.55, rattle=0.02, cell_scale=0.02):
+    """The LJ bulk of tests/test_ensemble_cell_internal.py:23-36: fcc
+    2x2x2 at a0 = 1.55, ``total`` starts rattled by ``rattle`` and cell
+    parameters drawn at ``cell_scale`` from RandomState(seed). Returns
+    (positions, cell, x0, s0), numpy."""
+    from sella_tpu_torch.potentials import fcc_bulk
+
+    atoms = fcc_bulk("Cu", a0, reps=(2, 2, 2))
+    rng = np.random.RandomState(seed)
+    x0 = np.stack([(atoms.positions + rattle * rng.normal(
+        size=atoms.positions.shape)).ravel() for _ in range(total)])
+    s0 = cell_scale * rng.normal(size=(total, 9))
+    return atoms.positions, np.asarray(atoms.cell), x0, s0
+
+
+def ci_event_setups():
+    """14b's four runs as numpy data (the JAX reference builds its own
+    topologies from the same numbers): name -> dict of symbols,
+    positions, cell, discovery, x0, s0, mask, potential keywords, config
+    keywords and run keywords."""
+    ev = CELL_INT_EVENTS
+    shear = np.zeros((3, 3))
+    shear[1, 0] = 32.0                 # factor * logm of the unit shear
+    pos, cell, _, _ = ci_lj_bulk(1)
+    xn = (pos + 0.01 * np.random.RandomState(0).normal(
+        size=pos.shape)).ravel()
+    tet = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0],
+                    [0.5, np.sqrt(3.0) / 2.0, 0.0],
+                    [0.5, np.sqrt(3.0) / 6.0, np.sqrt(2.0 / 3.0)]]) * R0_LJ
+    th = np.radians(0.2)
+    b = np.array([R0_LJ, 0.0, 0.0])
+    near_linear = np.stack([np.zeros(3), b, b + R0_LJ * np.array(
+        [np.cos(th), np.sin(th), 0.0]), np.array([R0_LJ, 0.75 * R0_LJ,
+                                                  0.6 * R0_LJ])])
+    off = np.array([4.0, 4.0, 4.0])
+    rng = np.random.RandomState(0)
+    xr = np.stack([(tet + off).ravel() + 0.05 * rng.normal(size=12),
+                   (near_linear + off).ravel()])
+    _, _, xq, sq = ci_lj_bulk(ev["queue_total"])
+    dimer = np.array([[2.0, 2.0, 2.0], [2.0, 2.0, 4.0],
+                      [7.0, 5.5, 3.0], [7.0, 7.5, 3.0]])
+    rng = np.random.RandomState(3)
+    xd = np.stack([dimer.ravel(), dimer.ravel() + 0.05 * rng.normal(
+        size=12)])
+    sd = 0.02 * rng.normal(size=(2, 9))
+    lj_cfg = dict(order=0, fmax=5e-3, delta0=0.1, h0_cell=10.0)
+    return {
+        "niggli": dict(symbols=["Cu"] * 32, positions=pos, cell=cell,
+                       pbc=True, bonds_scale=0.43, kinds=("bonds",),
+                       x0=np.stack([xn, xn]),
+                       s0=np.stack([np.zeros(9), shear.ravel()]),
+                       mask=None, pot=dict(rc=1.4), cfg=lj_cfg,
+                       run=dict(max_steps=ev["niggli_steps"],
+                                steps_per_call=5, niggli=True)),
+        "repave": dict(symbols=["He"] * 4, positions=tet + off,
+                       cell=np.eye(3) * 12.0, pbc=True, bonds_scale=None,
+                       kinds=("bonds", "angles", "dihedrals"), x0=xr,
+                       s0=None, mask=np.eye(3, dtype=bool),
+                       pot=dict(rc=3.0),
+                       cfg=dict(nproj=6, order=0, fmax=1e-3, h0_cell=10.0),
+                       run=dict(max_steps=ev["repave_steps"], repave=True)),
+        "queue": dict(symbols=["Cu"] * 32, positions=pos, cell=cell,
+                      pbc=True, bonds_scale=0.43, kinds=("bonds",), x0=xq,
+                      s0=sq, mask=None, pot={}, cfg=lj_cfg,
+                      run=dict(batch=ev["queue_batch"],
+                               max_steps_per_search=ev["queue_steps"],
+                               refill_every=5)),
+        "rigid": dict(symbols=["Ar"] * 4, positions=dimer,
+                      cell=np.eye(3) * 12.0, pbc=True, bonds_scale=None,
+                      kinds=("bonds", "angles", "dihedrals"),
+                      fragments=True, x0=xd, s0=sd, mask=None,
+                      pot=dict(epsilon=0.0104, sigma=3.4),
+                      cfg=dict(rigid_fragments=True, h0_cell=10.0),
+                      run=dict(max_steps=ev["rigid_steps"])),
+    }
+
+
+def ci_event_ints(setup, Atoms, Internals):
+    """The topology of a 14b setup, built with either package's classes."""
+    at = Atoms(setup["symbols"], setup["positions"], cell=setup["cell"],
+               pbc=setup["pbc"])
+    ints = Internals(at, allow_fragments=setup.get("fragments", False))
+    if setup["bonds_scale"] is None:
+        ints.find_all_bonds()
+    else:
+        ints.find_all_bonds(scale=setup["bonds_scale"])
+    if "angles" in setup["kinds"]:
+        ints.find_all_angles()
+    if "dihedrals" in setup["kinds"]:
+        ints.find_all_dihedrals()
+    return ints
+
+
+def _event_result(st):
+    return {"nsteps": st.nsteps.tolist(), "neval": st.neval.tolist(),
+            "converged": st.converged.tolist(), "f": st.f.tolist()}
+
+
+def run_cell_internal_entry_points(dev="cuda:0"):
+    """14b: ``run_cell_internal_ensemble`` with its Niggli rebase (a lane
+    started in the 45-degree-sheared representation) and its repave (a
+    near-linear lane), ``run_cell_internal_ensemble_queue`` and one
+    ``rigid_fragments=True`` run, each held lane by lane to the JAX
+    package's run of the same size."""
+    from sella_tpu_torch import Atoms, Internals, LennardJones
+    from sella_tpu_torch.parallel import ensemble_cell_internal as TC
+
+    dev = torch.device(dev)
+    sync = _sync_for(dev)
+    out = {}
+    for name, su in ci_event_setups().items():
+        ints = ci_event_ints(su, Atoms, Internals)
+        pot = LennardJones(pbc=True, **su["pot"]).to(dev)
+        ncell = 9 if su["mask"] is None else int(su["mask"].sum())
+        cfg = TC.CellInternalEnsembleConfig(natoms=len(su["symbols"]),
+                                            nint=ints.nint, ncell=ncell,
+                                            **su["cfg"])
+        sync()
+        t = time.perf_counter()
+        if name == "queue":
+            res = TC.run_cell_internal_ensemble_queue(
+                pot, ints, su["x0"], cfg, su["cell"], s0_all=su["s0"],
+                device=dev, **su["run"])
+            r = {"nsteps": [q["nsteps"] for q in res],
+                 "converged": [q["converged"] for q in res],
+                 "f": [q["f"] for q in res]}
+        else:
+            st = TC.run_cell_internal_ensemble(
+                pot, ints, su["x0"], cfg, su["cell"], cell_mask=su["mask"],
+                s0=su["s0"], device=dev, **su["run"])
+            if su["run"].get("niggli") or su["run"].get("repave"):
+                st, ints_fin = st
+                r = _event_result(st)
+                r["nint_final"] = ints_fin.nint
+                r["qact_off"] = int((~st.qact).sum())
+                if name == "niggli":
+                    c0 = st.cell0.cpu().numpy()
+                    r["rebased"] = [bool(_angle_dev(c) < 5.0) for c in c0]
+            else:
+                r = _event_result(st)
+        sync()
+        r["wall_s"] = time.perf_counter() - t
+        if not np.all(np.isfinite(r["f"])):
+            raise AssertionError(f"14b {name}: non-finite energies")
+        out[name] = r
+    print(json.dumps({"cell_internal_events": out}), flush=True)
+    if JAX_CELL_INT_REF is None or \
+            JAX_CELL_INT_REF["events"]["size"] != CELL_INT_EVENTS:
+        raise AssertionError("no JAX reference for 14b at "
+                             f"{CELL_INT_EVENTS}; rerun "
+                             "tools/jax_reference_counts.py")
+    for name, r in out.items():
+        ref = JAX_CELL_INT_REF["events"][name]
+        for k in ("nsteps", "neval", "converged"):
+            if k in ref and r[k] != ref[k]:
+                raise AssertionError(f"14b {name} {k} {r[k]} != JAX's "
+                                     f"{ref[k]}")
+        df = float(np.abs(np.array(r["f"]) - np.array(ref["f"])).max())
+        if df > CELL_INT_F_ATOL:
+            raise AssertionError(f"14b {name}: energies {df} eV from JAX's")
+    if out["niggli"]["rebased"] != [True, True]:
+        raise AssertionError("14b: the sheared lane was not rebased")
+    if out["repave"]["qact_off"] == 0:
+        raise AssertionError("14b: the near-linear lane was not repaved")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: batched IRC
+# ---------------------------------------------------------------------------
+# 15a: the first IRC_TS converged transition states of phase 4's jacobi
+# headline, both directions, through one IRC_BATCH-lane queue (the
+# defaults of IRCEnsembleConfig otherwise: dx 0.1, fmax 0.05)
+IRC_TS = 128
+IRC_BATCH = 256
+IRC_CONV_MIN = 0.95
+IRC_CPU_TS = 8
+IRC_X_ATOL = 1e-6
+CU_MASS = 63.546
+# 15b: examples/04_irc_pipeline.py at its full size, from the JAX run's
+# transition states (tools/irc_lj4_ts.npz), held to the JAX package's
+# queue: steps, force calls and converged flags equal, endpoint energies
+# within IRC_PIPE_F_ATOL
+IRC_PIPE_F_ATOL = 1e-8
+IRC_PIPE_TS_FILE = "tools/irc_lj4_ts.npz"
+JAX_IRC_REF = {"nsteps": [17, 17, 17, 17, 17, 17, 17, 17],
+               "neval": [77, 79, 73, 76, 85, 75, 74, 70],
+               "converged": [True] * 8,
+               "f": [-5.999999984346555,
+                     -5.999999567994307,
+                     -5.999999947582844,
+                     -5.999999100960313,
+                     -5.999999937897373,
+                     -5.999999956765527,
+                     -5.999999964739195,
+                     -5.9999999901536984]}
+
+
+def _exact_lam0(pot, cell_t, xs, nproj):
+    """Leftmost eigenvalue of each endpoint's exact rigid-projected
+    Hessian (HVPs along every unit vector)."""
+    from torch.func import grad, jvp, vmap
+
+    from sella_tpu_torch.parallel.ensemble import free_basis
+
+    d = xs.shape[1]
+    eye = torch.eye(d, dtype=xs.dtype, device=xs.device)
+
+    def hess(x):
+        return vmap(lambda u: jvp(lambda y: grad(pot.energy)(y, cell_t),
+                                  (x,), (u,))[1])(eye)
+
+    H = vmap(hess)(xs)
+    U = free_basis(xs, nproj)
+    Hp = U.transpose(1, 2) @ (0.5 * (H + H.transpose(1, 2))) @ U
+    return torch.linalg.eigvalsh(Hp)[:, 0]
+
+
+def run_irc_headline(jac_state, dev="cuda:0", nts=IRC_TS, batch=IRC_BATCH,
+                     cpu_ts=IRC_CPU_TS):
+    """15a: ``run_irc_ensemble_queue(directions="both")`` from the first
+    ``nts`` converged lanes (x, B) of phase 4's final state on the
+    headline slab, with Cu masses and ``nproj=3``; the first ``cpu_ts``
+    transition states' paths run again on the CPU."""
+    import sella_tpu_torch.parallel.ensemble_internal as TE
+    import sella_tpu_torch.parallel.ensemble_irc as TI
+    from sella_tpu_torch import IRCEnsembleConfig, run_irc_ensemble_queue
+
+    dev = torch.device(dev)
+    pot, _, cell, nat = headline_setup(1)
+    sel = torch.where(jac_state.converged)[0][:nts].cpu()
+    if len(sel) < nts:
+        raise AssertionError(f"phase 4 converged only {len(sel)} lanes")
+    x_ts = jac_state.x[sel].to(dev)
+    H_ts = jac_state.B[sel].to(dev)
+    f_ts = jac_state.f[sel].cpu().numpy()
+    cfg = IRCEnsembleConfig(natoms=nat, nproj=3)
+    masses = np.full(nat, CU_MASS)
+    pot_d = pot.to(dev)
+    cell_d = torch.as_tensor(cell, device=dev)
+    sync = _sync_for(dev)
+    # count the queue's outer-step calls
+    make_step = TI.make_irc_step_fn
+    calls = []
+
+    def counted(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(state, generator=None):
+            calls.append(1)
+            return step(state)
+
+        return run
+
+    TE.SPANS = {} if dev.type == "cuda" else None
+    TI.make_irc_step_fn = counted
+    sync()
+    t = time.perf_counter()
+    try:
+        res = run_irc_ensemble_queue(pot_d, x_ts, H_ts, cfg, masses, batch,
+                                     directions="both", cell=cell_d)
+        sync()
+        wall = time.perf_counter() - t
+        spans = TE.span_ms(TE.SPANS) if TE.SPANS is not None else {}
+    finally:
+        TE.SPANS = None
+        TI.make_irc_step_fn = make_step
+    xs = np.stack([r["x"] for r in res])
+    fs = np.array([r["f"] for r in res])
+    conv = np.array([r["converged"] for r in res])
+    nsteps = np.array([r["nsteps"] for r in res])
+    outer_steps = len(calls)
+    lam0 = _exact_lam0(pot_d, cell_d, torch.as_tensor(xs[conv], device=dev),
+                       3).cpu().numpy()
+    ts_f = np.repeat(f_ts, 2)
+    t = time.perf_counter()
+    res_cpu = run_irc_ensemble_queue(
+        headline_setup(1)[0], jac_state.x[sel[:cpu_ts]].cpu(),
+        jac_state.B[sel[:cpu_ts]].cpu(),
+        cfg, masses, 2 * cpu_ts, directions="both",
+        cell=torch.as_tensor(cell))
+    t_cpu = time.perf_counter() - t
+    dx_cpu = max(float(np.abs(a["x"] - b["x"]).max())
+                 for a, b in zip(res_cpu, res))
+    same_steps = all(a["nsteps"] == b["nsteps"] for a, b in zip(res_cpu, res))
+    stats = {
+        "paths": len(res), "batch": batch, "wall_s": wall,
+        "converged_frac": float(conv.mean()),
+        "inner_fail": int(sum(r["inner_fail"] for r in res)),
+        "mean_steps": float(nsteps.mean()), "max_steps": int(nsteps.max()),
+        "mean_force_calls": float(np.mean([r["neval"] for r in res])),
+        "outer_step_calls": outer_steps,
+        "s_per_step": wall / max(outer_steps, 1),
+        "paths_per_s": len(res) / wall,
+        "eigh_ms_per_step": (spans.get("irc_eigh", 0.0)
+                             / max(outer_steps, 1) if spans else None),
+        "eigh_share": (spans.get("irc_eigh", 0.0) / (1e3 * wall)
+                       if spans else None),
+        "exact_lam0_min": float(lam0.min()) if len(lam0) else None,
+        "endpoint_minus_ts_max": float((fs - ts_f).max()),
+        "cpu_paths": len(res_cpu), "cpu_wall_s": t_cpu,
+        "cpu_x_max_dev": dx_cpu, "cpu_same_nsteps": same_steps,
+    }
+    if dev.type == "cuda":
+        stats["card"] = _card()
+    print(json.dumps(stats), flush=True)
+    if not np.all(np.isfinite(xs)) or not np.all(np.isfinite(fs)):
+        raise AssertionError("15a: a path is not finite")
+    if stats["converged_frac"] < IRC_CONV_MIN:
+        raise AssertionError(f"15a converged_frac {stats['converged_frac']}"
+                             f" < {IRC_CONV_MIN}")
+    if not lam0.min() > 0:
+        raise AssertionError(f"15a: an endpoint's leftmost rigid-free "
+                             f"eigenvalue is {lam0.min()}")
+    if not stats["endpoint_minus_ts_max"] < 0:
+        raise AssertionError("15a: an endpoint lies above its TS")
+    if not (same_steps and dx_cpu < IRC_X_ATOL):
+        raise AssertionError(f"15a: the CPU run differs ({dx_cpu} A, same "
+                             f"steps {same_steps})")
+    return stats
+
+
+def irc_pipeline_inputs():
+    """15b's transition states: the JAX run of
+    examples/04_irc_pipeline.py's saddle stage (its first four converged
+    lanes' x and H), from IRC_PIPE_TS_FILE."""
+    import os
+
+    d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             IRC_PIPE_TS_FILE))
+    sel = d["sel"]
+    return d["x"][sel], d["H"][sel]
+
+
+def irc_pipeline_config():
+    """examples/04_irc_pipeline.py's IRC stage."""
+    return {"cfg": dict(natoms=4, fmax=1e-2, dx=0.4),
+            "masses": np.full(4, 39.948), "batch": 4}
+
+
+def run_irc_pipeline_held(dev="cuda:0"):
+    """15b: the example's IRC stage on the card, held to the JAX package's
+    queue on the same transition states."""
+    from sella_tpu_torch import IRCEnsembleConfig, LennardJones, \
+        run_irc_ensemble_queue
+
+    dev = torch.device(dev)
+    x_ts, H_ts = irc_pipeline_inputs()
+    pc = irc_pipeline_config()
+    res = run_irc_ensemble_queue(LennardJones().to(dev), x_ts, H_ts,
+                                 IRCEnsembleConfig(**pc["cfg"]),
+                                 pc["masses"], pc["batch"],
+                                 directions="both", device=dev)
+    out = {k: [r[k] for r in res] for k in ("nsteps", "neval", "converged",
+                                             "f")}
+    print(json.dumps({"irc_pipeline": out, "jax": JAX_IRC_REF}), flush=True)
+    if JAX_IRC_REF is None:
+        raise AssertionError("no JAX reference for 15b; rerun "
+                             "tools/jax_reference_counts.py")
+    for k in ("nsteps", "neval", "converged"):
+        if out[k] != JAX_IRC_REF[k]:
+            raise AssertionError(f"15b {k} {out[k]} != JAX's "
+                                 f"{JAX_IRC_REF[k]}")
+    df = float(np.abs(np.array(out["f"]) - np.array(JAX_IRC_REF["f"])).max())
+    if df > IRC_PIPE_F_ATOL:
+        raise AssertionError(f"15b: endpoint energies {df} eV from JAX's")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the heterogeneous queue
+# ---------------------------------------------------------------------------
+# 16a: examples/09_heterogeneous_sweep.py's interleaved LJ4 + LJ7 draws
+# (RandomState(0)), HETERO_SIZE["per_kind"] of each, order 0, through
+# HETERO_SIZE["batch"]-lane queues with prfo_eigh="jacobi"; held per
+# bucket to the JAX package's run (prfo_eigh="eigh") of the same size.
+# Cut for time from 512 + 512 starts (43x the example's 24 jobs) through
+# 256 lanes, 300 steps a search, to half the starts and half the lanes (2
+# searches a lane, so each bucket's queue refills) and 150 steps: the
+# LJ7 bucket's slowest searches set the wall, and phase 16 has 50 s
+HETERO_SIZE = {"per_kind": 256, "batch": 128, "refill_every": 10,
+               "max_steps_per_search": 150}
+HETERO_CONV_ATOL = 0.04
+HETERO_COUNTS_RTOL = 0.05
+JAX_HETERO_REF = {
+    "size": {"per_kind": 256, "batch": 128, "refill_every": 10,
+             "max_steps_per_search": 150},
+    "LJ4": {"n": 256, "converged_frac": 1.0,
+            "mean_steps_converged": 20.76953125,
+            "mean_force_calls": 21.76953125},
+    "LJ7": {"n": 256, "converged_frac": 0.90625,
+            "mean_steps_converged": 70.80603448275862,
+            "mean_force_calls": 79.23046875}}
+# 16b: the example's internal campaign (Morse Xe4 + LJ He7) at its FAST
+# size, 4 steps a search harvested every 4 (cut from 20 and 10 for time:
+# two runs of three buckets, each an internal queue and its Cartesian
+# spill, took 85.3 s on the card at 20 steps and 47.0 s at 8); the gate is
+# the dispatch, bit for bit against each bucket's own queue, not
+# convergence
+HETERO_INT_SIZE = {"pairs": 2, "batch": 6, "max_steps_per_search": 4,
+                   "refill_every": 4}
+
+
+def lj_clusters():
+    """The example's LJ4 tetrahedron and LJ7 pentagonal bipyramid."""
+    tet = np.array([[0, 0, 0], [1, 0, 0], [0.5, np.sqrt(3) / 2, 0],
+                    [0.5, np.sqrt(3) / 6, np.sqrt(2.0 / 3)]]) * 1.12
+    rstar = 2.0 ** (1.0 / 6.0)
+    ring_r = rstar / (2.0 * np.sin(np.pi / 5.0))
+    apex_z = np.sqrt(rstar ** 2 - ring_r ** 2)
+    ang = 2.0 * np.pi * np.arange(5) / 5.0
+    pbp = np.vstack([np.stack([ring_r * np.cos(ang), ring_r * np.sin(ang),
+                               np.zeros(5)], axis=1),
+                     [[0.0, 0.0, apex_z]], [[0.0, 0.0, -apex_z]]])
+    return tet, pbp
+
+
+def hetero_jobs(per_kind, rng=None):
+    """examples/09_heterogeneous_sweep.py:47-50: interleaved LJ4 and LJ7
+    starts, ``per_kind`` of each."""
+    tet, pbp = lj_clusters()
+    rng = np.random.RandomState(0) if rng is None else rng
+    jobs = []
+    for _ in range(per_kind):
+        jobs.append((tet + 0.12 * rng.normal(size=(4, 3))).ravel())
+        jobs.append((pbp + 0.2 * rng.normal(size=(7, 3))).ravel())
+    return jobs
+
+
+def hetero_config_kw():
+    return dict(order=0, fmax=1e-3)
+
+
+def _bucket_stats(results, jobs):
+    out = {}
+    for tag, nat in (("LJ4", 4), ("LJ7", 7)):
+        sel = [r for r, x in zip(results, jobs) if len(x) == 3 * nat]
+        conv = np.array([bool(r[3]) for r in sel])
+        out[tag] = {
+            "n": len(sel), "converged_frac": float(conv.mean()),
+            "mean_steps_converged": float(np.mean(
+                [r[2] for r, c in zip(sel, conv) if c])),
+            "mean_force_calls": float(np.mean([r[5] for r in sel])),
+        }
+    return out
+
+
+def run_hetero_campaign(dev="cuda:0", size=None):
+    """16a: ``run_heterogeneous_queue`` on the example's interleaved
+    LJ4/LJ7 campaign with ``prfo_eigh="jacobi"`` (the hand-written kernel
+    at n = 6 and 15 through ``jacobi_eigh_any``); gated on at least one
+    refill in each bucket."""
+    import sella_tpu_torch.parallel.ensemble as ens
+    from sella_tpu_torch import LennardJones, run_heterogeneous_queue
+    from sella_tpu_torch.ops.jacobi_eigh import jacobi_eigh_cuda
+
+    size = dict(HETERO_SIZE if size is None else size)
+    dev = torch.device(dev)
+    jobs = hetero_jobs(size["per_kind"])
+    sync = _sync_for(dev)
+    sync()
+    jacobi_eigh_cuda.launches = 0
+    t = time.perf_counter()
+    with _Refills(ens, "refill_converged") as refills:
+        res = run_heterogeneous_queue(
+            LennardJones().to(dev), jobs, size["batch"],
+            max_steps_per_search=size["max_steps_per_search"],
+            refill_every=size["refill_every"], device=dev,
+            prfo_eigh="jacobi", **hetero_config_kw())
+    sync()
+    wall = time.perf_counter() - t
+    launches = jacobi_eigh_cuda.launches
+    in_order = all(np.asarray(r[0]).shape == x.shape for r, x in
+                   zip(res, jobs)) and len(res) == len(jobs)
+    stats = {"jobs": len(jobs), "size": size, "wall_s": wall,
+             "searches_per_s": sum(bool(r[3]) for r in res) / wall,
+             "buckets": _bucket_stats(res, jobs), "in_order": in_order,
+             "refills_by_dim": refills.by_dim,
+             "jacobi_eigh_launches": launches}
+    if dev.type == "cuda":
+        stats["card"] = _card()
+    print(json.dumps(stats), flush=True)
+    if not in_order:
+        raise AssertionError("16a: results are not in input order")
+    if dev.type == "cuda" and launches == 0:
+        raise AssertionError("16a never launched the Jacobi kernel")
+    refills.require("16a", dims=(12, 21))
+    if JAX_HETERO_REF is None or JAX_HETERO_REF["size"] != size:
+        raise AssertionError(f"no JAX reference for 16a at {size}; rerun "
+                             "tools/jax_reference_counts.py")
+    for tag, b in stats["buckets"].items():
+        ref = JAX_HETERO_REF[tag]
+        if abs(b["converged_frac"] - ref["converged_frac"]) > \
+                HETERO_CONV_ATOL:
+            raise AssertionError(f"16a {tag} converged_frac "
+                                 f"{b['converged_frac']} vs JAX "
+                                 f"{ref['converged_frac']}")
+        for k in ("mean_steps_converged", "mean_force_calls"):
+            if abs(b[k] - ref[k]) > HETERO_COUNTS_RTOL * ref[k]:
+                raise AssertionError(f"16a {tag} {k} = {b[k]} is more than "
+                                     f"{HETERO_COUNTS_RTOL:.0%} from JAX's "
+                                     f"{ref[k]}")
+    return stats
+
+
+def hetero_internal_jobs(pairs):
+    """examples/09_heterogeneous_sweep.py's internal campaign at its FAST
+    size: the example's RandomState(0) first draws its 4 + 4 Cartesian
+    FAST starts, then ``pairs`` Morse Xe4 and LJ He7 starts. Returns
+    (xe4 positions, he7 positions, [(kind, x0), ...])."""
+    rng = np.random.RandomState(0)
+    hetero_jobs(4, rng)
+    xe4_pos = np.random.RandomState(4).normal(size=(4, 3), scale=3.0)
+    _, pbp = lj_clusters()
+    jobs = []
+    for _ in range(pairs):
+        jobs.append(("xe4", (xe4_pos + 0.3 * rng.normal(size=(4, 3))).ravel()))
+        jobs.append(("he7", (pbp + 0.12 * rng.normal(size=(7, 3))).ravel()))
+    return xe4_pos, pbp, jobs
+
+
+def run_hetero_internal(dev="cuda:0", size=None):
+    """16b: ``run_heterogeneous_internal_queue`` on the example's Morse Xe4
+    + LJ He7 campaign; its buckets must be the topology signatures'
+    grouping, its results in input order, and each equal bit for bit to
+    the port's direct ``run_internal_ensemble_queue`` of its bucket."""
+    from sella_tpu_torch import Atoms, InternalEnsembleConfig, \
+        LennardJones, MorsePotential, run_heterogeneous_internal_queue, \
+        run_internal_ensemble_queue
+    from sella_tpu_torch.parallel.ensemble_internal import \
+        fixed_internal_constraints
+    from sella_tpu_torch.parallel import hetero
+    from sella_tpu_torch.parallel.hetero import discover_internals, \
+        internal_topology_signature
+    from sella_tpu_torch.utils.units import kB
+
+    size = dict(HETERO_INT_SIZE if size is None else size)
+    dev = torch.device(dev)
+    xe4_pos, pbp, spec = hetero_internal_jobs(size["pairs"])
+    r0 = 4.73
+    morse = MorsePotential(epsilon=226.9 * kB, r0=r0,
+                           rho0=r0 * 1.099).to(dev)
+    lj = LennardJones().to(dev)
+    atoms = {"xe4": (morse, Atoms(["Xe"] * 4, xe4_pos)),
+             "he7": (lj, Atoms(["He"] * 7, pbp))}
+    jobs = [(atoms[k][0], atoms[k][1], x) for k, x in spec]
+    cfg = InternalEnsembleConfig(natoms=1, nint=1, order=1, fmax=1e-3,
+                                 gamma=1e-3)
+    kw = dict(max_steps_per_search=size["max_steps_per_search"],
+              refill_every=size["refill_every"], device=dev)
+    sync = _sync_for(dev)
+    # record the rows each bucket's queue is handed
+    calls = []
+    inner = hetero.run_internal_ensemble_queue
+
+    def spy(pot, ints, x0, *a, **k):
+        calls.append(np.asarray(x0))
+        return inner(pot, ints, x0, *a, **k)
+
+    hetero.run_internal_ensemble_queue = spy
+    sync()
+    t = time.perf_counter()
+    try:
+        res = run_heterogeneous_internal_queue(jobs, size["batch"], cfg=cfg,
+                                               **kw)
+    finally:
+        hetero.run_internal_ensemble_queue = inner
+    sync()
+    wall = time.perf_counter() - t
+    x_all = [np.asarray(j[2]) for j in jobs]
+    used = [[next(i for i, x in enumerate(x_all)
+                  if x.shape == row.shape and np.array_equal(x, row))
+             for row in rows] for rows in calls]
+    groups: dict = {}
+    ints_of: dict = {}
+    for i, (pot, at, x) in enumerate(jobs):
+        ints = discover_internals(at, x)
+        key = (id(pot), internal_topology_signature(ints))
+        groups.setdefault(key, []).append(i)
+        ints_of.setdefault(key, (pot, ints))
+    same = True
+    for key, idxs in groups.items():
+        pot, ints = ints_of[key]
+        bcfg = cfg._replace(natoms=ints.natoms, nint=ints.nint,
+                            ndummies=ints.ndummies,
+                            ncons=len(fixed_internal_constraints(ints)[0]))
+        direct = run_internal_ensemble_queue(
+            pot, ints, np.stack([jobs[i][2] for i in idxs]), bcfg,
+            min(size["batch"], len(idxs)), **kw)
+        for i, d in zip(idxs, direct):
+            a = res[i]
+            same &= (np.array_equal(a[0], d[0]) and a[1:] == d[1:])
+    in_order = all(np.asarray(r[0]).shape == np.asarray(j[2]).shape
+                   for r, j in zip(res, jobs))
+    stats = {"jobs": len(jobs), "size": size, "wall_s": wall,
+             "buckets": used, "signature_groups": list(groups.values()),
+             "converged": [bool(r[3]) for r in res],
+             "nsteps": [int(r[2]) for r in res], "in_order": in_order,
+             "equal_to_direct_queues": bool(same)}
+    print(json.dumps(stats), flush=True)
+    if not in_order:
+        raise AssertionError("16b: results are not in input order")
+    if used != list(groups.values()):
+        raise AssertionError(f"16b: buckets {used} are not the topology "
+                             f"signatures' grouping {list(groups.values())}")
+    if not same:
+        raise AssertionError("16b: a result differs from its bucket's "
+                             "direct queue")
+    return stats
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -2074,6 +2935,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_all = time.perf_counter()
     t = time.perf_counter()
     phase_env()
     _phase("1 environment + build", t)
@@ -2087,7 +2949,7 @@ def main():
     _phase("3 potential", t)
 
     t = time.perf_counter()
-    jac = run_headline("jacobi")
+    jac, jac_state = run_headline("jacobi", keep_state=True)
     if jac["jacobi_eigh_launches"] == 0:
         raise AssertionError("the jacobi headline never launched the kernel")
     for k, ref in JACOBI_COUNTS.items():
@@ -2106,8 +2968,8 @@ def main():
     _phase("5 headline, prfo_eigh=eigh", t)
 
     t = time.perf_counter()
-    print(f"cut: phase 6 runs {SERVED_TOTAL} starts, not 4096",
-          flush=True)
+    print(f"cut: phase 6 runs {SERVED_TOTAL} starts through 1024 lanes, "
+          "not 4096", flush=True)
     served = run_queue_headline(total=SERVED_TOTAL)
     _phase("6 served EMT headline, prfo_eigh=jacobi", t)
 
@@ -2161,7 +3023,8 @@ def main():
     run_internal_repave_and_constraints()
     _phase("12c repave, dummies, constraints", t12)
     t12 = time.perf_counter()
-    print(f"cut: phase 12d runs {INT_QUEUE_SIZE['total']} inputs, not 512",
+    print(f"cut: phase 12d runs {INT_QUEUE_SIZE['total']} inputs through "
+          f"{INT_QUEUE_SIZE['batch']} lanes, not 512",
           flush=True)
     run_internal_queue()
     _phase("12d served internal queue", t12)
@@ -2182,14 +3045,75 @@ def main():
         raise AssertionError(f"phase 13 took {t13:.1f} s, over its "
                              f"{PHASE13_MAX_S} s")
 
-    # phases 10-13 run no hand-written kernel (the cell tier's prep, the
+    t = time.perf_counter()
+    jacobi_eigh_cuda.launches = 0
+    print(f"cut: phase 14a runs {CELL_INT_SIZE['batch']} lanes, not 64 "
+          "(nor the 32 of the fallback): each step runs 20 full-Newton "
+          "iterations with a (B, 192, 192) float64 Gram eigh each, ~1.5 ms "
+          "a matrix on cuSOLVER, and the slowest lane needs ~220 steps",
+          flush=True)
+    ci = run_cell_internal_headline(cell_stats=cell)
+    _phase("14a internal+cell tier, bench config", t)
+    t14 = time.perf_counter()
+    print(f"cut: phase 14b runs {CELL_INT_EVENTS} (step caps; the events "
+          "tests run their lanes to convergence)", flush=True)
+    run_cell_internal_entry_points()
+    _phase("14b internal+cell entry points held to the JAX package", t14)
+    ci_launches = jacobi_eigh_cuda.launches
+    t14 = time.perf_counter() - t
+    _phase("14 internal+cell tier", t)
+
+    t = time.perf_counter()
+    jacobi_eigh_cuda.launches = 0
+    irc = run_irc_headline(jac_state)
+    del jac_state
+    _phase("15a batched IRC from the headline's transition states", t)
+    t15 = time.perf_counter()
+    run_irc_pipeline_held()
+    _phase("15b IRC pipeline held to the JAX package", t15)
+    irc_launches = jacobi_eigh_cuda.launches
+    t15 = time.perf_counter() - t
+    _phase("15 batched IRC", t)
+
+    t = time.perf_counter()
+    print(f"cut: phase 16a runs {HETERO_SIZE}, not 512 + 512 starts "
+          "through 256 lanes, 300 steps a search", flush=True)
+    hetero = run_hetero_campaign()
+    hetero_launches = hetero["jacobi_eigh_launches"]
+    _phase("16a heterogeneous Cartesian campaign", t)
+    t16 = time.perf_counter()
+    print(f"cut: phase 16b runs the example's FAST size, "
+          f"{HETERO_INT_SIZE['max_steps_per_search']} steps a search, "
+          f"harvested every {HETERO_INT_SIZE['refill_every']}", flush=True)
+    run_hetero_internal()
+    _phase("16b heterogeneous internal campaign", t16)
+    t16 = time.perf_counter() - t
+    _phase("16 heterogeneous queue", t)
+    t_all = time.perf_counter() - t_all
+    budgets = {ph: {"took_s": took, "budget_s": limit,
+                    "within": took <= limit}
+               for ph, took, limit in (("14", t14, PHASE14_MAX_S),
+                                       ("15", t15, PHASE15_MAX_S),
+                                       ("16", t16, PHASE16_MAX_S),
+                                       ("1-16", t_all, PHASES_MAX_S))}
+    print(f"[phase] 1-16 total: {t_all:.2f} s", flush=True)
+    print(json.dumps({"phase_budgets": budgets}), flush=True)
+    over = {ph: b for ph, b in budgets.items() if not b["within"]}
+    if over:
+        raise AssertionError(f"over budget: {over}")
+
+    # phases 10-15 run no hand-written kernel (the cell tier's prep, the
     # emt151 config and the internal tier's Gram and prep eighs use
     # torch.linalg.eigh, as the JAX package does; the large-system path's
-    # Lanczos eigh is (5, 5))
+    # Lanczos eigh is (5, 5); the internal+cell tier's (B, 192, 192) Gram
+    # and IRC's (B, 75, 75) eighs are float64 on torch.linalg.eigh); the
+    # heterogeneous campaign's buckets (16a) run prfo_eigh="jacobi"
     launches = {"4": jac["jacobi_eigh_launches"],
                 "6": served["jacobi_eigh_launches"],
                 "10": cell_launches, "11": split_launches,
-                "12": internal_launches, "13": large_launches}
+                "12": internal_launches, "13": large_launches,
+                "14": ci_launches, "15": irc_launches,
+                "16": hetero_launches}
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh",
         "route": "cuda",
@@ -2229,9 +3153,28 @@ def main():
         "jax_cpu": {k: v for k, v in JAX_LARGESCALE_REF.items()
                     if k != "size"},
         "tpu_v5_lite_s_per_step_not_this_card": TPU_LARGESCALE}}))
+    print(json.dumps({"batched_tiers": {
+        "card": card,
+        "cell_internal_14a": {k: ci[k] for k in (
+            "batch", "converged_frac", "mean_steps_converged",
+            "mean_force_calls", "s_per_step", "newton_iters_per_step",
+            "host_syncs_per_step", "span_ms_per_step")},
+        "cell_internal_14a_jax": JAX_CELL_INT_REF["headline"],
+        "cartesian_cell_phase10": {k: cell[k] for k in (
+            "batch", "mean_steps_converged", "mean_force_calls",
+            "s_per_step")},
+        "irc_15a": {k: irc[k] for k in (
+            "paths", "converged_frac", "mean_steps", "mean_force_calls",
+            "s_per_step", "paths_per_s", "eigh_ms_per_step")},
+        "hetero_16a": {k: hetero[k] for k in ("buckets", "wall_s",
+                                              "searches_per_s")},
+        "hetero_16a_jax": {k: JAX_HETERO_REF[k] for k in ("LJ4", "LJ7")},
+        "phase_budgets": budgets,
+    }}), flush=True)
     print(json.dumps({"lj4_size": LJ4_SIZE, "lj4": {
         k: lj4[k] for k in ["converged_frac", *LJ4_COUNTS]},
         "jax_same_size": JAX_LJ4_REF, "bench_r05_full_size": LJ4_COUNTS}))
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

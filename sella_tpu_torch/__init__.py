@@ -6,6 +6,12 @@
   hand-written CUDA Jacobi kernel (``ops.jacobi_eigh``).
 * The batched atom+cell tier (``parallel.ensemble_cell``: fixed batches
   with the per-lane Niggli rebase, and its work queue).
+* The batched internal+cell tier (``parallel.ensemble_cell_internal``:
+  internals and log-deformation cell parameters, the per-lane repave
+  and Niggli rebase, its work queue), batched IRC
+  (``parallel.ensemble_irc``: forward, reverse and the both-directions
+  work queue) and heterogeneous campaigns bucketed by shape
+  (``parallel.hetero``).
 * The batched internal-coordinate tier (``parallel.ensemble_internal``
   over the ``coords`` engine: redundant internals with dummy atoms,
   fixed internals, TRIC fragments, the per-lane repave, and its work
@@ -25,19 +31,27 @@ from .atoms import Atoms
 from .coords import Constraints, Internals
 from .parallel import (
     CellEnsembleConfig,
+    CellInternalEnsembleConfig,
+    CellInternalSearchState,
     CellSearchState,
     EnsembleConfig,
     EnsembleMetrics,
+    IRCEnsembleConfig,
+    IRCState,
     InternalEnsembleConfig,
     InternalSearchState,
     MMFState,
     SearchState,
     cells_of,
+    init_cell_internal_state,
     init_cell_state,
     init_internal_state,
+    init_irc_state,
     init_state,
+    make_cell_internal_step_fn,
     make_cell_step_fn,
     make_internal_step_fn,
+    make_irc_step_fn,
     make_mmf_step,
     make_queue_fns,
     make_step_fn,
@@ -45,10 +59,16 @@ from .parallel import (
     refill_converged,
     run_cell_ensemble,
     run_cell_ensemble_queue,
+    run_cell_internal_ensemble,
+    run_cell_internal_ensemble_queue,
     run_ensemble,
     run_ensemble_queue,
+    run_heterogeneous_internal_queue,
+    run_heterogeneous_queue,
     run_internal_ensemble,
     run_internal_ensemble_queue,
+    run_irc_ensemble,
+    run_irc_ensemble_queue,
     run_mmf,
     summarize,
 )
@@ -71,6 +91,8 @@ __all__ = [
     "BinnedEMT",
     "BinnedPairPotential",
     "CellEnsembleConfig",
+    "CellInternalEnsembleConfig",
+    "CellInternalSearchState",
     "CellSearchState",
     "ChunkedPairPotential",
     "Constraints",
@@ -79,6 +101,8 @@ __all__ = [
     "EnsembleMetrics",
     "F32Potential",
     "Harmonic",
+    "IRCEnsembleConfig",
+    "IRCState",
     "InternalEnsembleConfig",
     "InternalSearchState",
     "Internals",
@@ -90,11 +114,15 @@ __all__ = [
     "StillingerWeber",
     "TIP3P",
     "cells_of",
+    "init_cell_internal_state",
     "init_cell_state",
     "init_internal_state",
+    "init_irc_state",
     "init_state",
+    "make_cell_internal_step_fn",
     "make_cell_step_fn",
     "make_internal_step_fn",
+    "make_irc_step_fn",
     "make_mmf_step",
     "make_queue_fns",
     "make_step_fn",
@@ -102,10 +130,16 @@ __all__ = [
     "refill_converged",
     "run_cell_ensemble",
     "run_cell_ensemble_queue",
+    "run_cell_internal_ensemble",
+    "run_cell_internal_ensemble_queue",
     "run_ensemble",
     "run_ensemble_queue",
+    "run_heterogeneous_internal_queue",
+    "run_heterogeneous_queue",
     "run_internal_ensemble",
     "run_internal_ensemble_queue",
+    "run_irc_ensemble",
+    "run_irc_ensemble_queue",
     "run_mmf",
     "summarize",
 ]

@@ -1,8 +1,9 @@
 """Carrying optimizer state and weights between the JAX package and the
 port.
 
-Both packages' ``SearchState`` (and ``CellSearchState`` and
-``InternalSearchState``) have the same fields. A JAX state converted with
+Both packages' ``SearchState`` (and ``CellSearchState``,
+``InternalSearchState``, ``CellInternalSearchState`` and ``IRCState``)
+have the same fields. A JAX state converted with
 ``np.asarray`` per field becomes the port's state exactly (dtypes kept:
 float64 arrays, int32 counters, bool masks), and back. The large-system
 ``MMFState`` nests an ``LBFGSMemory``; :func:`mmf_state_from_numpy` and
@@ -24,7 +25,8 @@ from .parallel.largescale import LBFGSMemory, MMFState
 def state_from_numpy(fields: Dict[str, np.ndarray], device=None,
                      state_cls=SearchState):
     """Build a ``state_cls`` state (:class:`SearchState` by default,
-    ``CellSearchState`` or ``InternalSearchState``) from numpy arrays
+    ``CellSearchState``, ``InternalSearchState``,
+    ``CellInternalSearchState`` or ``IRCState``) from numpy arrays
     keyed by field name (every field required) on ``device``: by default
     the GPU, raising where there is none; ``device="cpu"`` asks for the
     CPU."""

@@ -7,7 +7,9 @@ potential evaluation (``torch.func.vmap`` over lanes).
 
 The JAX package's structured control flow becomes host control flow:
 
-* ``lax.fori_loop`` becomes a Python ``for`` with the same fixed count;
+* ``lax.fori_loop`` becomes a Python ``for`` with the same fixed count
+  (the restricted step's root-find stops once every lane is done, which
+  changes no result);
 * ``lax.cond(jnp.any(mask), ...)`` becomes ``if bool(mask.any()):`` (the
   scheduled Davidson, the restart re-evaluation and the curvature audit;
   each is one host sync);
@@ -291,20 +293,27 @@ def _blstsq(A: torch.Tensor, Bv: torch.Tensor, rcond: float = 1e-10):
 
 def ts_bfgs_update_batched(
     B: torch.Tensor, S: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
-    f32: bool = False, absb: str = "eigh",
+    f32: bool = False, absb: str = "eigh", eig=None,
 ) -> torch.Tensor:
     """Batched multi-secant TS-BFGS (``hessian_update.py:118-125``).
 
     ``S, Y``: (B, d, K) secant pairs with inactive columns zeroed via
     ``mask`` (B, K). ``absb``: how the |B| metric is computed — ``eigh``
-    (exact) or ``ns`` (Newton–Schulz matmuls; see :func:`_abs_ns`)."""
+    (exact) or ``ns`` (Newton–Schulz matmuls; see :func:`_abs_ns`).
+    ``eig``: ``(lams, V)`` of ``B`` from a float64 eigh the caller already
+    made (``absb="eigh"``, ``f32=False``); the same numbers as a second
+    eigh of the same matrix, one batched eigh fewer."""
     mask_f = mask.to(B.dtype)
     S = S * mask_f[:, None, :]
     Y = Y * mask_f[:, None, :]
     J = Y - torch.einsum("bij,bjk->bik", B, S)
     STY = torch.einsum("bli,blj->bij", S, Y)               # (B, K, K)
     X1 = torch.einsum("bij,bkj->bik", STY, Y)              # (B, K, d)
-    absB = _abs_psd(B, f32, absb)
+    if eig is not None and absb == "eigh" and not f32:
+        lams, V = eig
+        absB = torch.einsum("bik,bk,bjk->bij", V, torch.abs(lams), V)
+    else:
+        absB = _abs_psd(B, f32, absb)
     absBS = torch.einsum("bij,bjk->bik", absB, S)          # (B, d, K)
     X2 = torch.einsum("bli,blj->bij", S, absBS)            # (B, K, K)
     X2 = torch.einsum("bij,bkj->bik", X2, absBS)           # (B, K, d)
@@ -443,6 +452,73 @@ def bootstrap_B_batched(S, Y, mask, dim):
 # ---------------------------------------------------------------------------
 # Batched P-RFO / QN trust-region step
 # ---------------------------------------------------------------------------
+def _secular_F_dF(delta, g2, edge, mu):
+    """F(mu) and F'(mu) of the pole-shifted secular function of
+    :func:`_rfo_secular`."""
+    # uncoupled terms need no mask here: their g2 is exactly 0 and inv is
+    # finite, so they add exact zeros to both sums
+    den = delta + mu[:, None]
+    inv = torch.where(den > 1e-300, den.reciprocal(), 0.0)
+    g2inv = g2 * inv
+    F = edge - mu + torch.sum(g2inv, dim=1)
+    dF = -1.0 - torch.sum(g2inv * inv, dim=1)
+    return F, dF
+
+
+def _secular_newton(delta, g2, edge, mu0, gnorm, niter: int):
+    """``niter`` safeguarded Newton steps on F(mu) = 0 from ``mu0``,
+    bracketed in (0, gnorm]; returns mu."""
+    mu, lo, hi = mu0, torch.zeros_like(gnorm), gnorm + 1e-30
+    for _ in range(niter):
+        F, dF = _secular_F_dF(delta, g2, edge, mu)
+        pos = F > 0
+        lo = torch.where(pos, mu, lo)
+        hi = torch.where(pos, hi, mu)
+        newt = mu - F / dF
+        bad = ~torch.isfinite(newt) | (newt <= lo) | (newt >= hi)
+        mu = torch.where(bad, 0.5 * (lo + hi), newt)
+    return mu
+
+
+# On the card the secular loop is ~25 small kernels an iteration for 32
+# iterations, and each costs more to launch from the host than to run:
+# the restricted step's root-find calls it up to rs_maxiter + 2 times a
+# step. So it runs as a CUDA graph, captured once per (shape, dtype,
+# device, niter) and replayed: the same kernels on the same inputs, so
+# the same numbers, from one launch.
+_SECULAR_GRAPHS: dict = {}
+_SECULAR_GRAPHS_MAX = 32
+
+
+def _secular_newton_graphed(delta, g2, edge, mu0, gnorm, niter: int):
+    """:func:`_secular_newton` on CUDA tensors through a cached CUDA
+    graph."""
+    args = (delta, g2, edge, mu0, gnorm)
+    key = (tuple(delta.shape), delta.dtype, delta.device, niter)
+    entry = _SECULAR_GRAPHS.get(key)
+    if entry is None:
+        if len(_SECULAR_GRAPHS) >= _SECULAR_GRAPHS_MAX:
+            _SECULAR_GRAPHS.clear()
+        static = [a.detach().clone(memory_format=torch.contiguous_format)
+                  for a in args]
+        # warm up on a side stream before the capture, as CUDA graphs ask
+        stream = torch.cuda.current_stream(delta.device)
+        side = torch.cuda.Stream(device=delta.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            _secular_newton(*static, niter)
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = _secular_newton(*static, niter)
+        entry = _SECULAR_GRAPHS[key] = (graph, static, out)
+    graph, static, out = entry
+    for dst, src in zip(static, args):
+        dst.copy_(src)
+    graph.replay()
+    return out.clone()
+
+
 def _rfo_secular(gsub, d, alpha, highest, niter: int = 32):
     """Batched RFO subproblem via the arrowhead secular equation, solved
     in the POLE-SHIFTED gap variable (LAPACK dlaed4's trick).
@@ -489,25 +565,10 @@ def _rfo_secular(gsub, d, alpha, highest, niter: int = 32):
     )
     mu0 = torch.minimum(torch.clamp(mu0, min=1e-300), gnorm + 1e-30)
 
-    def F_dF(mu):
-        # uncoupled terms need no mask here: their g2 is exactly 0 and
-        # inv is finite, so they add exact zeros to both sums
-        den = delta + mu[:, None]
-        inv = torch.where(den > 1e-300, den.reciprocal(), 0.0)
-        g2inv = g2 * inv
-        F = edge - mu + torch.sum(g2inv, dim=1)
-        dF = -1.0 - torch.sum(g2inv * inv, dim=1)
-        return F, dF
-
-    mu, lo, hi = mu0, torch.zeros_like(gnorm), gnorm + 1e-30
-    for _ in range(niter):
-        F, dF = F_dF(mu)
-        pos = F > 0
-        lo = torch.where(pos, mu, lo)
-        hi = torch.where(pos, hi, mu)
-        newt = mu - F / dF
-        bad = ~torch.isfinite(newt) | (newt <= lo) | (newt >= hi)
-        mu = torch.where(bad, 0.5 * (lo + hi), newt)
+    solve = (_secular_newton_graphed if delta.is_cuda and not any(
+        t.requires_grad for t in (delta, g2, edge, mu0, gnorm))
+        else _secular_newton)
+    mu = solve(delta, g2, edge, mu0, gnorm, niter)
 
     # reduced-frame den = lam_low - p = -(delta + mu), exact at poles;
     # original frame: lowest -> identity, highest -> inv flips sign
@@ -518,7 +579,7 @@ def _rfo_secular(gsub, d, alpha, highest, niter: int = 32):
     s = num * inv_o
 
     # dlam/dalpha by implicit differentiation of f(lam, alpha) = 0
-    _, dF = F_dF(mu)
+    _, dF = _secular_F_dF(delta, g2, edge, mu)
     df_dlam = -dF                       # = 1 + sum g2 inv^2 > 0
     a = alpha[:, None]
     df_dalpha = -torch.sum(
@@ -614,19 +675,24 @@ def _step_norm(s_full, ds_full, rs: str, natoms: int):
 
 def restricted_step_batched(
     g_free, Hproj, Ufree, delta, cfg: EnsembleConfig, prep=None,
-    norm_fn=None,
+    norm_fn=None, stepper_fn=None,
 ):
     """Map per-search trust radii to steps: masked Newton/bisection on
-    ||s(alpha)|| = delta (``restricted_step.py:78-120``), with a fixed
-    count of ``cfg.rs_maxiter`` iterations (off the card the loop stops
-    once every lane is done, with the same result). Returns
+    ||s(alpha)|| = delta (``restricted_step.py:78-120``), at most
+    ``cfg.rs_maxiter`` iterations: the JAX package's fixed count, cut
+    short once every lane is done, with the same result. Returns
     (s_full, smag).
 
     ``norm_fn(s_full, ds_full) -> (val, dval)`` overrides the step norm
     (the internal-coordinate tier passes its weighted max-internal-step
     norm); by default it is ``cfg.rs`` ('ras'/'tr') on Cartesian
-    geometry."""
+    geometry. ``stepper_fn(prep, order, alpha) -> (s_free, ds_free)``
+    overrides the step family (the IRC tier passes its mass-weighted
+    corrector); it uses the qn alpha schedule unless ``cfg.method`` is
+    'prfo'."""
     stepper = prfo_step_batched if cfg.method == "prfo" else qn_step_batched
+    if stepper_fn is not None:
+        stepper = stepper_fn
     Bsz = g_free.shape[0]
     dtype, dev = g_free.dtype, g_free.device
 
@@ -658,12 +724,10 @@ def restricted_step_batched(
     upper = torch.full((Bsz,), amax, dtype=dtype, device=dev)
     done = done0
     # Once every lane is done, the remaining iterations leave alpha, and
-    # so the result, unchanged. Off the card the test costs nothing, so
-    # the loop stops there; on the card it would cost a host sync per
-    # iteration, and the fixed count stays, as in the JAX package.
-    stop_early = dev.type != "cuda"
+    # so the result, unchanged: the loop stops there. The test is a host
+    # sync an iteration on the card, cheaper than an iteration's launches.
     for _ in range(cfg.rs_maxiter):
-        if stop_early and bool(done.all()):
+        if bool(done.all()):
             break
         _, val, dval = eval_at(alpha)
         err = val - delta

@@ -72,8 +72,10 @@ from .ensemble import (
 # entry into a named region under that name (``"gram"``: every Gram eigh;
 # ``"newton"``: the whole back-transform, of which ``"geodesic"`` is the
 # fallback with its polish; ``"davidson"``: the scheduled
-# diagonalization; ``"restricted"``: the trust-region step); ``None``
-# (the default) costs one test.
+# diagonalization; ``"restricted"``: the trust-region step; the
+# internal+cell tier records ``"gram"``, ``"newton"`` and ``"restricted"``
+# too, and the IRC tier ``"irc_eigh"``, its eighs); ``None`` (the
+# default) costs one test.
 SPANS = None
 
 

@@ -3,8 +3,9 @@ version, one ensemble step (Cartesian and atom+cell) on the card against
 the same step on the CPU, ``F32Potential`` on the card, the internal
 tier's state on the card and its ``"robust"`` Gram eigh, and the
 large-system path: the binned, chunked and ML potentials and
-``run_mmf`` on the card against the CPU. They skip without a CUDA
-device.
+``run_mmf`` on the card against the CPU; the internal+cell tier's steps
+and IRC on the card against the CPU, and a heterogeneous queue that
+launches the kernel. They skip without a CUDA device.
 
 This file imports neither jax nor the JAX package, so it runs on a GPU
 host without them:
@@ -509,3 +510,121 @@ def test_run_mmf_card_matches_cpu(cuda, order):
     assert (int(st.nsteps), int(st.nmatvec)) == (int(ref.nsteps),
                                                  int(ref.nmatvec))
     np.testing.assert_allclose(st.x.cpu().numpy(), ref.x.numpy(), atol=1e-6)
+
+
+def test_cell_internal_steps_card_match_cpu(cuda):
+    """Three steps of the internal+cell tier on the LJ 2x2x2 bulk (two
+    lanes, full cell mask) from a numpy x0 on the card and on the CPU:
+    every field on the card, the same counts, x, s and f within 1e-9."""
+    from sella_tpu_torch import Internals, LennardJones
+    from sella_tpu_torch.parallel import ensemble_cell_internal as TC
+    from sella_tpu_torch.potentials import fcc_bulk
+
+    atoms = fcc_bulk("Cu", 1.55, reps=(2, 2, 2))
+    ints = Internals(atoms)
+    ints.find_all_bonds(scale=0.43)
+    rng = np.random.RandomState(0)
+    x0 = np.stack([(atoms.positions + 0.02 * rng.normal(
+        size=atoms.positions.shape)).ravel() for _ in range(2)])
+    s0 = 0.02 * rng.normal(size=(2, 9))
+    cfg = TC.CellInternalEnsembleConfig(natoms=32, nint=ints.nint,
+                                        fmax=5e-3, h0_cell=10.0)
+    out = {}
+    for dev in (None, "cpu"):
+        pot = LennardJones(pbc=True)
+        st = TC.init_cell_internal_state(pot, ints, x0, cfg, atoms.cell,
+                                         s0=s0, device=dev)
+        step = TC.make_cell_internal_step_fn(pot, ints, cfg)
+        for _ in range(3):
+            st = step(st)
+        out[dev] = st
+    card, cpu = out[None], out["cpu"]
+    assert all(t.device.type == "cuda" for t in card)
+    for k in ("nsteps", "neval", "converged", "qact", "qcons"):
+        assert torch.equal(getattr(card, k).cpu(), getattr(cpu, k)), k
+    for k in ("x", "s", "f"):
+        np.testing.assert_allclose(getattr(card, k).cpu().numpy(),
+                                   getattr(cpu, k).numpy(), rtol=0,
+                                   atol=1e-9)
+
+
+def test_irc_card_matches_cpu(cuda):
+    """Forward and reverse IRC of the LJ4 transition states
+    (``tools/irc_lj4_ts.npz``) on the card and on the CPU: the same
+    steps, force calls and flags, endpoints within 1e-8."""
+    import os
+
+    from sella_tpu_torch import IRCEnsembleConfig, LennardJones, \
+        run_irc_ensemble_queue
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = np.load(os.path.join(root, "tools", "irc_lj4_ts.npz"))
+    x, H = d["x"][d["converged"]], d["H"][d["converged"]]
+    cfg = IRCEnsembleConfig(natoms=4, fmax=1e-2, dx=0.4)
+    masses = np.full(4, 39.948)
+    card = run_irc_ensemble_queue(LennardJones(), x, H, cfg, masses, 4)
+    cpu = run_irc_ensemble_queue(LennardJones(), x, H, cfg, masses, 4,
+                                 device="cpu")
+    for a, b in zip(card, cpu):
+        for k in ("ts", "direction", "nsteps", "neval", "converged",
+                  "inner_fail"):
+            assert a[k] == b[k], k
+        np.testing.assert_allclose(a["x"], b["x"], rtol=0, atol=1e-8)
+
+
+def test_hetero_queue_launches_the_kernel(cuda):
+    """A mixed LJ4/LJ7 campaign with ``prfo_eigh="jacobi"`` on the card:
+    each bucket launches the Jacobi kernel (n = 6 and 15), the results
+    come back in input order and converge to the clusters' minima."""
+    from sella_tpu_torch import LennardJones, run_heterogeneous_queue
+
+    tet = np.array([[0, 0, 0], [1, 0, 0], [0.5, np.sqrt(3) / 2, 0],
+                    [0.5, np.sqrt(3) / 6, np.sqrt(2.0 / 3)]]) * 1.12
+    rstar = 2.0 ** (1.0 / 6.0)
+    ring_r = rstar / (2.0 * np.sin(np.pi / 5.0))
+    ang = 2.0 * np.pi * np.arange(5) / 5.0
+    apex = np.sqrt(rstar ** 2 - ring_r ** 2)
+    pbp = np.vstack([np.stack([ring_r * np.cos(ang), ring_r * np.sin(ang),
+                               np.zeros(5)], axis=1),
+                     [[0, 0, apex]], [[0, 0, -apex]]])
+    rng = np.random.RandomState(0)
+    jobs = []
+    for _ in range(4):
+        jobs.append((tet + 0.05 * rng.normal(size=(4, 3))).ravel())
+        jobs.append((pbp + 0.05 * rng.normal(size=(7, 3))).ravel())
+    je.jacobi_eigh_cuda.launches = 0
+    res = run_heterogeneous_queue(LennardJones(), jobs, 4, order=0,
+                                  fmax=1e-3, prfo_eigh="jacobi",
+                                  max_steps_per_search=300)
+    assert je.jacobi_eigh_cuda.launches > 0
+    for r, x in zip(res, jobs):
+        assert r[0].shape == x.shape and r[3]
+        assert abs(r[1] - (-6.0 if x.size == 12 else -16.505384)) < 1e-4
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_secular_graph_replay_equals_eager(cuda, order):
+    """The restricted step's secular solve replays a cached CUDA graph on
+    the card: the same numbers, bit for bit, as the same loop run eagerly
+    on the card, on fresh inputs at every call (the graph's static
+    buffers are refilled, not reused stale)."""
+    rng = np.random.RandomState(order)
+    Bsz, q = 64, 15
+    T._SECULAR_GRAPHS.clear()
+    for call in range(3):
+        A = torch.as_tensor(_rand_sym(Bsz, q, 10 * order + call), device=cuda)
+        g = torch.as_tensor(rng.normal(size=(Bsz, q)), device=cuda)
+        alpha = torch.as_tensor(rng.uniform(0.1, 1.0, Bsz), device=cuda)
+        prep = T.prfo_prepare_batched(g, A, order)
+        s, ds = T.prfo_step_batched(prep, order, alpha)
+        graphs = dict(T._SECULAR_GRAPHS)
+        T._SECULAR_GRAPHS.clear()
+        newton = T._secular_newton_graphed
+        T._secular_newton_graphed = T._secular_newton
+        try:
+            s_e, ds_e = T.prfo_step_batched(prep, order, alpha)
+        finally:
+            T._secular_newton_graphed = newton
+        T._SECULAR_GRAPHS.update(graphs)
+        assert len(graphs) == 1
+        assert torch.equal(s, s_e) and torch.equal(ds, ds_e)

@@ -34,6 +34,19 @@ from sella_tpu_torch.parallel import ensemble_internal as TE
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One OpenBLAS thread for the LAPACK calls of both packages (the JAX
+    reference's eigh, numpy's pinv and svd): the test lane runs six
+    workers on a few cores, where every worker's default thread pool
+    spins against the others'. The results are the same to rounding."""
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
+
+
 R0 = 4.73
 MAX_STEPS = 40
 COUNTS = ("nsteps", "nmatvec", "neval", "converged")

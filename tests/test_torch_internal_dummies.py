@@ -34,6 +34,19 @@ from sella_tpu_torch.potentials.tip3p import angleHOH, rOH, water_cluster
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One OpenBLAS thread for the LAPACK calls of both packages (the JAX
+    reference's eigh, numpy's pinv and svd): the test lane runs six
+    workers on a few cores, where every worker's default thread pool
+    spins against the others'. The results are the same to rounding."""
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
+
+
 R0 = 4.73
 COUNTS = ("nsteps", "nmatvec", "neval", "converged")
 TET = np.array([[0, 0, 0], [1, 0, 0], [0.5, np.sqrt(3) / 2, 0],

@@ -9,7 +9,9 @@ one ``F32Potential`` gradient, two steps of the internal-coordinate tier
 queue, and the large-system path: an order-0 ``run_mmf`` on a binned LJ
 block, an order-1 step on the committed MLFF weights (the state
 round-tripped through ``interop``), ``BinnedEMT`` and
-Stillinger-Weber energies.
+Stillinger-Weber energies; then a step of the internal+cell tier, an
+IRC step (its state round-tripped through ``interop``) and a two-job
+heterogeneous queue.
 """
 import os
 import subprocess
@@ -44,7 +46,10 @@ assert {'sella_tpu_torch.parallel.checkpoint',
         'sella_tpu_torch.potentials.binned',
         'sella_tpu_torch.potentials.sharded',
         'sella_tpu_torch.potentials.mlff', 'sella_tpu_torch.potentials.sw',
-        'sella_tpu_torch.parallel.largescale'} <= set(mods), mods
+        'sella_tpu_torch.parallel.largescale',
+        'sella_tpu_torch.parallel.ensemble_cell_internal',
+        'sella_tpu_torch.parallel.ensemble_irc',
+        'sella_tpu_torch.parallel.hetero'} <= set(mods), mods
 from sella_tpu_torch import (EnsembleConfig, LennardJones, run_ensemble,
                              run_ensemble_queue, summarize)
 x0 = np.array([[0, 0, 0, 1, 0, 0, .5, .87, 0, .5, .29, .82]]) * 1.12
@@ -124,6 +129,28 @@ si = si_diamond()
 esw = StillingerWeber(pbc=True).energy(torch.as_tensor(si.positions.ravel()),
                                        torch.as_tensor(si.cell))
 assert bool(torch.isfinite(eb)) and float(esw) < 0
+from sella_tpu_torch import (CellInternalEnsembleConfig, IRCEnsembleConfig,
+                             IRCState, run_cell_internal_ensemble,
+                             run_heterogeneous_queue, run_irc_ensemble)
+bi = Internals(atoms)
+bi.find_all_bonds(scale=0.43)
+ci = run_cell_internal_ensemble(
+    LennardJones(pbc=True), bi,
+    torch.as_tensor(atoms.positions.reshape(1, -1) + 0.02),
+    CellInternalEnsembleConfig(
+        natoms=32, nint=bi.nint, h0_cell=10.0), atoms.cell, max_steps=1)
+assert int(ci.nsteps[0]) == 1 and bool(torch.isfinite(ci.x).all())
+H4 = torch.eye(12, dtype=torch.float64) * 10.0
+H4[0, 0] = -5.0
+ir = run_irc_ensemble(LennardJones(), torch.as_tensor(x0), H4[None],
+                      IRCEnsembleConfig(natoms=4, dx=0.1), np.full(4, 4.0),
+                      max_steps=1)
+back = state_from_numpy(state_to_numpy(ir), device='cpu', state_cls=IRCState)
+assert torch.equal(back.x, ir.x) and int(ir.nsteps[0]) == 1
+hq = run_heterogeneous_queue(LennardJones(), [x0[0], blk[:21]],
+                             batch=1, max_steps_per_search=2, order=0,
+                             device='cpu')
+assert len(hq) == 2 and hq[1][0].shape == (21,)
 bad = [m for m in sys.modules
        if (m == 'jax' or m.startswith(('jax.', 'jaxlib', 'sella_tpu.')) or
            m == 'sella_tpu') and sys.modules[m] is not None]

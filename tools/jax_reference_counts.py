@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The JAX package's results on the configurations of ``chip_smoke.py``
-phases 7, 8, 12 and 13b, computed on the CPU.
+phases 7, 8, 12, 13b, 14, 15b and 16a, computed on the CPU.
 
 The card's host has no JAX, so ``chip_smoke.py`` holds the port to the
 numbers this script prints: one JSON line, ``{"JAX_LJ4_REF": ...,
 "JAX_CONSTRAINT_REF": ..., "JAX_INTERNAL_REF": ...,
-"JAX_LARGESCALE_REF": ...}``, whose values are
+"JAX_LARGESCALE_REF": ..., "JAX_CELL_INT_REF": ..., "JAX_IRC_REF": ...,
+"JAX_HETERO_REF": ...}``, whose values are
 copied over the constants of those names. Each carries the sizes it was
 computed at under ``"size"``, and ``chip_smoke.py`` raises when its own
 sizes differ:
@@ -24,11 +25,21 @@ sizes differ:
   LARGESCALE_RUNS`` (the LJ7 saddle from the injected numpy mode, the
   Cu slab and the 1024-atom binned-EMT minimizations) through the JAX
   ``run_mmf`` loop: steps, force calls, HVPs and the final energy, under
-  ``"size"`` the whole ``LARGESCALE_RUNS``.
+  ``"size"`` the whole ``LARGESCALE_RUNS``;
+* phase 14: the internal+cell tier on phase 10's system at
+  ``chip_smoke.CELL_INT_SIZE`` (converged share, steps, force calls) and
+  the four runs of 14b at ``CELL_INT_EVENTS`` (per lane: steps, force
+  calls, converged flags, energies);
+* phase 15b: examples/04_irc_pipeline.py at its full size; its saddle
+  stage's transition states are written to ``chip_smoke.
+  IRC_PIPE_TS_FILE`` (the card's host has no JAX to make them);
+* phase 16a: the heterogeneous LJ4/LJ7 campaign at ``chip_smoke.
+  HETERO_SIZE``, per bucket.
 
-Run from the repository root (about ten minutes on one CPU; ``--only
-internal``, ``--only cartesian`` or ``--only largescale`` computes one
-of the groups, the last in about a minute):
+Run from the repository root (about twenty minutes on one CPU; ``--only
+internal``, ``--only cartesian``, ``--only largescale``, ``--only
+cell_internal``, ``--only irc`` or ``--only hetero`` computes one of the
+groups):
 
     JAX_PLATFORMS=cpu python3 tools/jax_reference_counts.py
 """
@@ -252,6 +263,181 @@ def largescale():
     return out
 
 
+def _jit_cell_internal_helpers(JC):
+    """Jit the JAX internal+cell init and refresh (eagerly each
+    dispatches hundreds of single-operation compiles); once per
+    process. The cell mask rides as a hashable key."""
+    if getattr(JC, "_jitted_for_reference", False):
+        return
+    JC._jitted_for_reference = True
+    init, refresh = JC.init_cell_internal_state, JC.refresh_cell_internal
+
+    def key(m):
+        return None if m is None else tuple(map(tuple, np.asarray(m)))
+
+    def unkey(k):
+        return None if k is None else np.asarray(k, bool)
+
+    j_init = jax.jit(lambda pot, ints, x0, cfg, c0, mk, s0: init(
+        pot, ints, x0, cfg, c0, unkey(mk), s0), static_argnums=(0, 1, 3, 5))
+    j_refresh = jax.jit(lambda st, pot, ints, cfg, mk, mask: refresh(
+        st, pot, ints, cfg, None, unkey(mk), mask),
+        static_argnums=(1, 2, 3, 4))
+    JC.init_cell_internal_state = (
+        lambda pot, ints, x0, cfg, cell0, cell_mask=None, s0=None: j_init(
+            pot, ints, jnp.asarray(x0), cfg, jnp.asarray(cell0),
+            key(cell_mask), None if s0 is None else jnp.asarray(s0)))
+    JC.refresh_cell_internal = (
+        lambda st, pot, ints, cfg, cell0=None, cell_mask=None, mask=None:
+        j_refresh(st, pot, ints, cfg, key(cell_mask), mask))
+
+
+def _cached_guess(ints):
+    # a jitted init cannot call the host guess Hessian
+    H0 = ints.guess_hessian()
+    ints.guess_hessian = lambda *a, **k: H0
+    return ints
+
+
+def cell_internal_headline():
+    """14a: the bench's bulk Cu EMT system in internal coordinates + cell
+    (``chip_smoke.cell_int_setup``), driven as the phase drives it."""
+    import sella_tpu.parallel.ensemble_cell_internal as JC
+    from sella_tpu.atoms import Atoms
+    from sella_tpu.coords.internals import Internals
+    from sella_tpu.potentials import EMT
+
+    _jit_cell_internal_helpers(JC)
+    size = dict(cs.CELL_INT_SIZE)
+    _, tints, x0, s0, cell0, nat = cs.cell_int_setup(size["batch"])
+    at = tints.atoms
+    ints = Internals(Atoms(list(at.symbols), at.positions, cell=at.cell,
+                           pbc=at.pbc))
+    ints.find_all_bonds()
+    assert ints.nint == tints.nint
+    _cached_guess(ints)
+    cfg = JC.CellInternalEnsembleConfig(**cs.cell_int_config(
+        tints)._asdict())
+    pot = EMT(np.array([29] * nat), pbc=True)
+    st = JC.init_cell_internal_state(pot, ints, x0, cfg, cell0, None, s0)
+    step = jax.jit(JC.make_cell_internal_step_fn(pot, ints, cfg, None))
+    key = jax.random.PRNGKey(0)
+    steps = 0
+    while steps < size["max_steps"]:
+        for _ in range(min(10, size["max_steps"] - steps)):
+            st = step(st, key)
+            steps += 1
+        if bool(jnp.all(st.converged)):
+            break
+    conv = np.asarray(st.converged)
+    return {"size": size, "converged_frac": float(conv.mean()),
+            "mean_steps_converged": float(np.asarray(st.nsteps)[conv].mean()),
+            "mean_force_calls": float(np.asarray(st.neval).mean()),
+            "steps_run": steps}
+
+
+def cell_internal_events():
+    """14b: ``chip_smoke.ci_event_setups``'s four runs through the JAX
+    entry points."""
+    import sella_tpu.parallel.ensemble_cell_internal as JC
+    from sella_tpu.atoms import Atoms
+    from sella_tpu.coords.internals import Internals
+
+    _jit_cell_internal_helpers(JC)
+    out = {"size": dict(cs.CELL_INT_EVENTS)}
+    for name, su in cs.ci_event_setups().items():
+        ints = _cached_guess(cs.ci_event_ints(su, Atoms, Internals))
+        pot = LennardJones(pbc=True, **su["pot"])
+        ncell = 9 if su["mask"] is None else int(su["mask"].sum())
+        cfg = JC.CellInternalEnsembleConfig(natoms=len(su["symbols"]),
+                                            nint=ints.nint, ncell=ncell,
+                                            **su["cfg"])
+        x0 = jnp.asarray(su["x0"])
+        s0 = None if su["s0"] is None else jnp.asarray(su["s0"])
+        if name == "queue":
+            res = JC.run_cell_internal_ensemble_queue(
+                pot, ints, x0, cfg, jnp.asarray(su["cell"]), s0_all=s0,
+                **su["run"])
+            out[name] = {"nsteps": [r["nsteps"] for r in res],
+                         "converged": [r["converged"] for r in res],
+                         "f": [r["f"] for r in res]}
+            continue
+        st = JC.run_cell_internal_ensemble(
+            pot, ints, x0, cfg, jnp.asarray(su["cell"]),
+            cell_mask=su["mask"], s0=s0, **su["run"])
+        if su["run"].get("niggli") or su["run"].get("repave"):
+            st = st[0]
+        out[name] = {"nsteps": np.asarray(st.nsteps).tolist(),
+                     "neval": np.asarray(st.neval).tolist(),
+                     "converged": np.asarray(st.converged).tolist(),
+                     "f": np.asarray(st.f).tolist()}
+    return out
+
+
+def cell_internal():
+    return {"headline": cell_internal_headline(),
+            "events": cell_internal_events()}
+
+
+def irc_pipeline():
+    """15b: examples/04_irc_pipeline.py at its full size. The saddle
+    stage's transition states (x and H of every lane, and the example's
+    selection, its first four converged lanes) go to
+    ``chip_smoke.IRC_PIPE_TS_FILE``; the IRC queue's steps, converged
+    flags and endpoint energies, and each item's force calls (the JAX
+    queue does not report them: ``run_irc_ensemble`` forward and reverse
+    on the same four, whose lanes step exactly as in the queue), are
+    returned."""
+    from sella_tpu.parallel import ensemble_irc as JI
+
+    tet = np.array([[0, 0, 0], [1, 0, 0], [0.5, np.sqrt(3) / 2, 0],
+                    [0.5, np.sqrt(3) / 6, np.sqrt(2.0 / 3)]]) * 1.12
+    rng = np.random.RandomState(7)
+    x0 = jnp.asarray((tet[None] + 0.12 * rng.normal(size=(8, 4, 3))
+                      ).reshape(8, 12))
+    pot = LennardJones()
+    st = run_ensemble(pot, x0, EnsembleConfig(natoms=4, order=1, fmax=1e-4,
+                                              gamma=1e-3), max_steps=300)
+    conv = np.asarray(st.converged)
+    sel = np.where(conv)[0][:4]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    np.savez(os.path.join(root, cs.IRC_PIPE_TS_FILE), x=np.asarray(st.x),
+             H=np.asarray(st.B), f=np.asarray(st.f), converged=conv,
+             sel=sel)
+    x_ts, H_ts = cs.irc_pipeline_inputs()
+    pc = cs.irc_pipeline_config()
+    cfg = JI.IRCEnsembleConfig(**pc["cfg"])
+    res = JI.run_irc_ensemble_queue(pot, jnp.asarray(x_ts),
+                                    jnp.asarray(H_ts), cfg, pc["masses"],
+                                    batch=pc["batch"], directions="both")
+    neval = {}
+    for d, sgn in (("forward", 1), ("reverse", -1)):
+        s = JI.run_irc_ensemble(pot, jnp.asarray(x_ts), jnp.asarray(H_ts),
+                                cfg, pc["masses"], direction=d,
+                                max_steps=150)
+        neval[sgn] = np.asarray(s.neval).tolist()
+    return {"nsteps": [r["nsteps"] for r in res],
+            "neval": [neval[r["direction"]][r["ts"]] for r in res],
+            "converged": [r["converged"] for r in res],
+            "f": [r["f"] for r in res]}
+
+
+def hetero():
+    """16a: ``chip_smoke.hetero_jobs`` through the JAX
+    ``run_heterogeneous_queue`` (``prfo_eigh="eigh"``)."""
+    from sella_tpu.parallel.hetero import run_heterogeneous_queue
+
+    size = dict(cs.HETERO_SIZE)
+    jobs = cs.hetero_jobs(size["per_kind"])
+    res = run_heterogeneous_queue(
+        LennardJones(), jobs, size["batch"],
+        max_steps_per_search=size["max_steps_per_search"],
+        refill_every=size["refill_every"], **cs.hetero_config_kw())
+    res = [(np.asarray(r[0]), float(r[1]), int(r[2]), bool(r[3]),
+            int(r[4]), int(r[5])) for r in res]
+    return {"size": size, **cs._bucket_stats(res, jobs)}
+
+
 if __name__ == "__main__":
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
         else None
@@ -263,4 +449,10 @@ if __name__ == "__main__":
         out["JAX_INTERNAL_REF"] = internal()
     if only in (None, "largescale"):
         out["JAX_LARGESCALE_REF"] = largescale()
+    if only in (None, "cell_internal"):
+        out["JAX_CELL_INT_REF"] = cell_internal()
+    if only in (None, "irc"):
+        out["JAX_IRC_REF"] = irc_pipeline()
+    if only in (None, "hetero"):
+        out["JAX_HETERO_REF"] = hetero()
     print(json.dumps(out))
